@@ -1,0 +1,31 @@
+"""repro_torch — the PyTorch/CUDA port of :mod:`repro`, slice by slice.
+
+The JAX/Pallas package ``repro`` is the reference; this package re-implements
+it in PyTorch for one NVIDIA H100, with every TPU kernel on a ported path
+rewritten as a hand-written Hopper kernel (``kernels/csrc``). It never
+imports JAX or ``repro``; only the parity tests load both.
+
+Slice 1 (this tree) is the serving path of ``launch/serve.serve_engine``:
+int weights at rest (``kernels/qmm``), a paged quantized KV pool
+(``kernels/paged_attn``), monolithic admission and greedy decode. Parts of
+``repro`` outside the slice raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+
+Devices: every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"``; asking for ``cuda`` without a card raises.
+"""
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The one device rule: ``None`` means ``cuda``; a ``cuda`` device on a
+    machine without a card raises instead of silently running on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,29 @@
+"""Architecture registry of the port. Slice 1 ports gemma-2b; the other
+nine architectures of ``repro.configs`` wait for ROADMAP A5."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.transformer import ModelConfig
+
+ARCH_IDS = ("gemma-2b",)
+
+_MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ROADMAP A5); have {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    cfg = _module(name).CONFIG
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_reduced(name: str, **overrides) -> ModelConfig:
+    cfg = _module(name).REDUCED
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -1,0 +1,134 @@
+"""Transformer building blocks (port of ``repro.models.layers``): plain
+functions over nested dicts of tensors, with the reference's numerics —
+compute in ``cfg.dtype``, accumulation and normalisation in f32.
+
+Weights are stored stacked over layers (L, …) exactly as the reference's
+``lax.scan`` layout; the forward loops over per-layer views
+(:func:`layer_view`).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.quant import QTensor, mm_f32, quant_dense
+
+Params = dict
+
+
+def layer_view(tree, i: int):
+    """Layer ``i`` of a stacked param tree — views, not copies."""
+    if isinstance(tree, dict):
+        return {k: layer_view(v, i) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.index(i)
+    return tree[i]
+
+
+def _normal(gen, shape, device):
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def init_dense(gen, d_in: int, d_out: int, *, lead=(), dtype=torch.bfloat16,
+               device="cpu", scale: float | None = None) -> Params:
+    """w ~ N(0, 1)·scale (default d_in^-0.5), drawn in f32 then cast."""
+    scale = scale if scale is not None else d_in ** -0.5
+    w = _normal(gen, (*lead, d_in, d_out), device) * scale
+    return {"w": w.to(dtype)}
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """y = x · W in f32, cast back to ``x.dtype``; a QTensor weight goes
+    through the ``quant_dense`` registry op (codes streamed by the kernel
+    on the card)."""
+    w = p["w"]
+    y = quant_dense(x, w) if isinstance(w, QTensor) else mm_f32(x, w)
+    y = y.to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def init_embedding(gen, vocab: int, d_model: int, *, dtype=torch.bfloat16,
+                   device="cpu") -> Params:
+    return {"table": _normal(gen, (vocab, d_model), device).to(dtype)
+            * d_model ** -0.5}
+
+
+def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    table = p["table"]
+    if isinstance(table, QTensor):
+        raise NotImplementedError("quantized embedding tables (ROADMAP A4)")
+    return table[ids.to(torch.int64)]
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied readout: logits = x · tableᵀ in f32 (a plain product, as the
+    reference leaves it to XLA)."""
+    table = p["table"]
+    if isinstance(table, QTensor):
+        raise NotImplementedError("quantized tied unembed, qmm_t (ROADMAP B6)")
+    return mm_f32(x, table.t())
+
+
+def init_rmsnorm(d: int, *, lead=(), dtype=torch.bfloat16, device="cpu") -> Params:
+    return {"g": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["g"].to(torch.float32))).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0, device="cpu"):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S). Rotates the
+    two halves of the head (not interleaved pairs)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_mlp(gen, d_model: int, d_ff: int, *, lead=(), dtype=torch.bfloat16,
+             device="cpu") -> Params:
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    return {"up": init_dense(gen, d_model, d_ff, **kw),
+            "gate": init_dense(gen, d_model, d_ff, **kw),
+            "down": init_dense(gen, d_ff, d_model, scale=d_ff ** -0.5, **kw)}
+
+
+def _const(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype`` on the host (a Python scalar, so using it
+    costs no host-to-device copy)."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU as ``jax.nn.gelu(approximate=True)`` evaluates
+    it: the same op sequence, each op and constant in ``x.dtype`` (at bf16
+    this rounds after every op, where ``F.gelu`` rounds once)."""
+    c1 = _const(0.044715, x.dtype)
+    c2 = _const(math.sqrt(2 / math.pi), x.dtype)
+    inner = x + c1 * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(c2 * inner)))
+
+
+def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    h_gate = dense(p["gate"], x)
+    h_up = dense(p["up"], x)
+    a = F.silu(h_gate) if act == "silu" else gelu_tanh(h_gate)
+    return dense(p["down"], a * h_up)
