@@ -8,6 +8,11 @@ leaves on ``device``. bfloat16 arrays (``ml_dtypes``) arrive as torch
 bfloat16 exactly (through f32, which holds every bf16 value). Converting a
 JAX ``QTensor`` into that dict form is the caller's job — this package
 never imports JAX.
+
+``key_from_numpy(k)`` takes a JAX PRNG key (``uint32[2]``, or a stack of
+them) as numpy and returns the port's key (:mod:`repro_torch.prng`: int64
+words on the host); a model vector or any other array crosses with
+``tensor_from_numpy``.
 """
 from __future__ import annotations
 
@@ -33,3 +38,11 @@ def params_from_numpy(tree, device="cpu"):
                            QScheme(**tree["scheme"]))
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def key_from_numpy(k) -> torch.Tensor:
+    """A JAX ``uint32[..., 2]`` key as the port's int64 key words."""
+    k = np.asarray(k)
+    if k.shape[-1:] != (2,) or k.dtype != np.uint32:
+        raise ValueError(f"a JAX key is uint32[..., 2], got {k.dtype}{list(k.shape)}")
+    return torch.from_numpy(k.astype(np.int64))

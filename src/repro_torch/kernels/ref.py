@@ -13,6 +13,31 @@ def qmm_ref(x, codes, scale):
     return x.to(torch.float32) @ w
 
 
+def ds_quant_ref(x, rand, scale, *, s: int):
+    """The fused double-sampling quantizer in plain PyTorch (the reference's
+    ``ds_quant_ref``): a shared base level ⌊clip(|x|/scale)·s⌋ and two
+    up-bits from the high and low 16 bits of one 32-bit ``rand`` word (int32
+    bit patterns, widened and masked before shifting: torch cannot shift
+    uint32, ROADMAP C3)."""
+    x32 = x.to(torch.float32)
+    r = rand.to(torch.int64) & 0xFFFFFFFF
+    u1 = (r >> 16).to(torch.float32) * (1.0 / (1 << 16))
+    u2 = (r & 0xFFFF).to(torch.float32) * (1.0 / (1 << 16))
+    mag = x32.abs() / torch.clamp_min(scale.to(torch.float32), 1e-30)
+    t = torch.clamp(mag, 0.0, 1.0) * s
+    base = torch.clamp(torch.floor(t), 0, s - 1)
+    frac = t - base
+    sign = torch.sign(x32)
+    c1 = ((base + (u1 < frac).to(torch.float32)) * sign).to(torch.int8)
+    c2 = ((base + (u2 < frac).to(torch.float32)) * sign).to(torch.int8)
+    return c1, c2
+
+
+def qmv_ref(codes, v):
+    """int8 codes (R, C) · v (C,) with the codes widened to f32."""
+    return codes.to(torch.float32) @ v.to(torch.float32)
+
+
 def dequant_pages_ref(pages, scale):
     """Dequantize KV pages to bf16 rows (the ring buffer's per-row math).
 

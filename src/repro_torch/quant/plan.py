@@ -69,9 +69,15 @@ class PrecisionPlan:
         return 2 ** self.sample_bits - 1
 
     def ds_config(self):
-        raise NotImplementedError(
-            "PrecisionPlan.ds_config needs the linear-model suite "
-            "(ROADMAP A2, slice 2)")
+        """The DSConfig consumed by ``core.double_sampling`` (imported here:
+        quant is the base layer and must not import core at module scope)."""
+        from repro_torch.core.double_sampling import DSConfig
+
+        return DSConfig(
+            s_sample=self.s_sample,
+            s_model=2 ** self.model_bits - 1 if self.model_bits else 0,
+            s_grad=2 ** self.grad_bits - 1 if self.grad_bits else 0,
+        )
 
     def to_dict(self) -> dict:
         return {f.name: getattr(self, f.name)

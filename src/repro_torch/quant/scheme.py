@@ -2,11 +2,12 @@
 ``repro.quant.scheme``).
 
 The dataclass carries every field of the reference so a scheme crosses the
-numpy bridge unchanged (``QScheme(**fields)``). Slice 1 encodes and decodes
-the symmetric int grid (``grid='int'``) with ``channel``/``row`` scaling,
-``nearest`` rounding and nibble-packed int4; the zipml and level grids, the
-bitplane layout and stochastic/ds rounding raise in ``qtensor`` until the
-ROADMAP items that port them (A1, A2).
+numpy bridge unchanged (``QScheme(**fields)``). The port encodes and
+decodes the symmetric int grid (``grid='int'``, nearest rounding, nibble-packed
+int4) and the paper's interval grid (``grid='zipml'``, stochastic, nearest and
+double-sampled rounding) under tensor, row, column and channel scaling; the
+level grid, the bitplane layout and stochastic rounding on the int grid raise
+in ``qtensor`` until the ROADMAP items that port them.
 """
 from __future__ import annotations
 
@@ -58,6 +59,16 @@ class QScheme:
         if self.layout == "bitplane":
             return self.bits + 1
         return self.bits
+
+    def with_rounding(self, rounding: str) -> "QScheme":
+        return dataclasses.replace(self, rounding=rounding)
+
+    @classmethod
+    def zipml(cls, s: int, *, scaling: str = "tensor",
+              rounding: str = "stochastic", signed: bool = True) -> "QScheme":
+        """The paper's Q(v, s): s intervals on [0, 1] (signed: [-1, 1])."""
+        return cls(bits=max(int(s).bit_length(), 1), grid="zipml",
+                   scaling=scaling, rounding=rounding, signed=signed, s=int(s))
 
     @classmethod
     def int_symmetric(cls, bits: int, *, scaling: str = "tensor",

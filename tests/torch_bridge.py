@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import torch
 
 from repro.quant import QTensor as JQTensor
-from repro_torch.interop import params_from_numpy
+from repro_torch.interop import key_from_numpy, params_from_numpy
 
 
 def jax_to_numpy(tree):
@@ -26,6 +26,11 @@ def jax_to_numpy(tree):
 def bridge(tree, device="cpu"):
     """JAX params → the port's params."""
     return params_from_numpy(jax_to_numpy(tree), device)
+
+
+def key(jkey):
+    """A JAX PRNG key → the port's key (the same threefry words)."""
+    return key_from_numpy(np.asarray(jkey))
 
 
 def pool_from_jax(pool, device="cpu"):
