@@ -25,7 +25,18 @@ NVIDIA card.
    convergence criterion (e2e final loss ≤ 1.4 × fp32 + 1e-4); profiles 20
    steps; then trains synthetic100 on the card and on the CPU's plain path
    and checks identical sample codes at every step and equal losses;
-5. prints a ``{"kernels": [...]}`` line and, last, the result line
+5. slice 3 — checks ``qmm_t`` (rel 1e-5) and both ``quant_adamw`` passes
+   (the reference's contract) at the training path's shapes, then trains
+   full-width gemma-2b through ``repro_torch.launch.train.make_trainer`` +
+   ``Trainer.run``: batch 4 × 512 tokens, 5 steps, ship-quantized int8
+   weights, int8 gradients with error feedback, int8 AdamW moments, with the
+   ``qmm``, ``qmm_t``, ``qadamw_absmax`` and ``qadamw_update`` counters set
+   to 0 just before and read just after; checks finite losses, no skipped
+   step and a last loss below the first; profiles 2 more steps; runs the
+   bf16 yardstick (no channel, f32 moments, 3 steps), which must launch none
+   of the four; trains the reduced model at f32 on the card and on the CPU's
+   plain path from one state and checks losses, masters and codes;
+6. prints a ``{"kernels": [...]}`` line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -47,7 +58,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 QMM_SHAPES = [(4, 2048, 2048), (4, 2048, 256), (4, 2048, 16384),
-              (4, 16384, 2048), (128, 2048, 16384)]
+              (4, 16384, 2048), (128, 2048, 16384),
+              # the training path: M = B·S = 2048 tokens (slice 3)
+              (2048, 2048, 2048), (2048, 2048, 256), (2048, 2048, 16384),
+              (2048, 16384, 2048)]
 QMM_TOL = 1e-5                # rel to max|plain|: f32 dequant, f32 accumulation order
 ATTN_TOL = 1e-4               # abs: both f32 online softmax, summation order only
 ATTN_LENS = [160, 97, 33, 1]
@@ -67,6 +81,32 @@ QMV_TOL = 1e-5                # rel to max|plain|: f32 accumulation order
 # fp32 loss in 2 epochs on the reference.
 LINEAR = dict(model="lssvm", epochs=2, batch=16, lr=0.02)
 LINEAR_LOSS_TOL = 1e-5        # rel: card vs CPU plain path, same codes, sums reordered
+# qmm_t at the training path's shapes: M = B·S = 2048 tokens, (K, N) of the
+# seven stacked weights of a gemma-2b layer (q/o, k/v, up/gate, down)
+QMM_T_SHAPES = [(2048, 2048, 2048), (2048, 2048, 256), (2048, 2048, 16384),
+                (2048, 16384, 2048)]
+# quant_adamw at every leaf shape of full-width gemma-2b flattened to (rows,
+# last dim): up/gate, embed.table, k/v, ln1/ln2, q/o, down
+ADAMW_SHAPES = [(36864, 16384), (256000, 2048), (36864, 256), (18, 2048),
+                (36864, 2048), (294912, 2048)]
+ADAMW_KW = dict(qmax=127, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, lr=1e-4, b1c=0.1,
+                b2c=0.05, clip=0.5, finite=1.0, uclip=10.0)
+# the training path: full-width gemma-2b, all three ZipML channels at 8 bits.
+# lr 1e-5 (warmup 1 step, cosine over 5): Adam's first steps move every weight
+# by ~lr whatever its gradient, and at this width 1e-4 and 3e-5 overshoot
+# (the loss rose again within the 5 steps); 1e-5 falls at every step.
+TRAIN = dict(batch=4, seq=512, steps=5, lr=1e-5)
+TRAIN_CHECK_TOL = 1e-4        # rel: card vs CPU plain path, f32, sums reordered
+# the [check] run's optimizer: lr 1e-3 from the first step, so that three
+# steps move a master by ~3e-3, 10⁴ × the f32 ulp of the largest masters and
+# far above TRAIN_CHECK_TOL (the default warmup of 100 steps moves one by
+# < 2e-5: a check of the masters themselves could not see the update)
+TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=1)
+# a free run's masters' update, relative L2 distance card vs CPU: a flipped
+# stochastic code re-draws its moment column on the next step, so free runs
+# part by far more than TRAIN_CHECK_TOL; a frozen master or a wrong lr gives
+# 0.1 to 1
+FREE_RUN_UPDATE_L2 = 5e-2
 
 
 def _fail(msg: str, code: int):
@@ -127,6 +167,9 @@ def check_qmm(dev, flush):
             plain_ms = _timed(lambda: Q.qmm_plain(x, qt.codes, qt.scale, packed=packed), flush)
             lib_ms = _timed(lambda: torch.matmul(x, w_bf16), flush)
             nbytes = x.numel() * 2 + qt.codes.numel() + n * 4 + m * n * 4
+            # x is bf16 and bf16 holds every int8 code exactly; the per-column
+            # scale comes after the contraction, so one bf16 tensor-core GEMM
+            # with f32 accumulation computes the same function: the bf16 rate
             bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
             rows.append({"name": f"qmm int{bits} M{m} K{k} N{n}", "key": (packed, m, k, n),
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -586,6 +629,354 @@ def agree_linear(dev):
             "losses_cpu": cpu.losses.tolist(), "max_rel_loss_diff": float(rel.max())}
 
 
+def check_qmm_t(dev, flush):
+    """``qmm_t`` against its plain version (rel 1e-5 of the largest output)
+    at the training path's shapes, int8 and packed int4, f32 g (the
+    cotangent the backward hands it); ``torch.matmul`` of g (bf16) with the
+    bf16-decoded weight transposed is the library yardstick."""
+    import torch
+    from repro_torch.kernels import qmm_t as QT
+    from repro_torch.quant import QScheme, encode
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for bits in (8, 4):
+        packed = bits == 4
+        for m, k, n in QMM_T_SHAPES:
+            w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+            qt = encode(w, QScheme.int_symmetric(bits, scaling="channel",
+                                                 rounding="nearest", packed=packed))
+            g = torch.randn(m, n, generator=gen, device=dev)
+            got = QT.qmm_t(g, qt.codes, qt.scale, packed=packed)
+            want = QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ref_max = float(want.abs().max())
+            if not err <= QMM_TOL * ref_max:
+                raise AssertionError(f"qmm_t int{bits} {m}x{k}x{n}: max err {err} "
+                                     f"> {QMM_TOL} x {ref_max}")
+            w_bf16 = qt.decode().to(torch.bfloat16)
+            g_bf16 = g.to(torch.bfloat16)
+            ms = _timed(lambda: QT.qmm_t(g, qt.codes, qt.scale, packed=packed), flush)
+            plain_ms = _timed(lambda: QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed),
+                              flush)
+            lib_ms = _timed(lambda: torch.matmul(g_bf16, w_bf16.T), flush)
+            nbytes = g.numel() * 4 + qt.codes.numel() + n * 4 + m * k * 4
+            # the per-column scale lies along the contraction axis, so it
+            # cannot wait for the epilogue: g ⊙ scale must keep f32 precision
+            # (bf16's 8-bit mantissa rounds it by ~1e-3, against the 1e-5
+            # contract), so the products run at the f32 rate
+            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n, F32_FLOPS)
+            rows.append({"name": f"qmm_t int{bits} M{m} K{k} N{n}", "key": (packed, m, k, n),
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+            print(f"[kernel] qmm_t int{bits} (M,K,N)=({m},{k},{n}): max_err={err:.3e} "
+                  f"(tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (bf16 matmul) "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}, f32 FMAs at 67 TFLOP/s)", flush=True)
+            del w, qt, g, got, want, w_bf16, g_bf16
+    return rows
+
+
+def check_quant_adamw(dev, flush):
+    """Both passes of ``quant_adamw`` against ``quant_adamw_ref`` (the
+    reference's contract: masters rtol 2e-6 / atol 2e-6, scales rtol 1e-6,
+    ≥ 99.9 % of codes equal) at every leaf shape of the training path; each
+    pass timed against its plain version and its byte bound (pass 1 reads 6
+    bytes per element, pass 2 moves 20; no PyTorch call computes the same
+    function)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import quant_adamw as QA
+
+    rows, gen = [], torch.Generator(device=dev).manual_seed(6)
+    for r, c in ADAMW_SHAPES:
+        master = torch.randn(r, c, generator=gen, device=dev)
+        g = torch.randn(r, c, generator=gen, device=dev) * 0.1
+        mc = torch.randint(-127, 128, (r, c), generator=gen, device=dev, dtype=torch.int8)
+        vc = torch.randint(0, 128, (r, c), generator=gen, device=dev, dtype=torch.int8)
+        ms = torch.rand(c, generator=gen, device=dev) * 0.01 + 1e-4
+        vs = torch.rand(c, generator=gen, device=dev) * 0.01 + 1e-4
+        rand = torch.randint(-2 ** 31, 2 ** 31, (r, c), generator=gen, device=dev,
+                             dtype=torch.int32)
+        args = (master, g, mc, ms, vc, vs, rand)
+        nm, mcn, msn, vcn, vsn = ops.quant_adamw_update(*args, **ADAMW_KW)
+        want = ref.quant_adamw_ref(*args, **ADAMW_KW)
+        torch.cuda.synchronize()
+        err = float((nm - want[0]).abs().max())
+        torch.testing.assert_close(nm, want[0], rtol=2e-6, atol=2e-6)
+        torch.testing.assert_close(msn, want[2], rtol=1e-6, atol=0)
+        torch.testing.assert_close(vsn, want[4], rtol=1e-6, atol=0)
+        same = min(float((mcn == want[1]).float().mean()), float((vcn == want[3]).float().mean()))
+        if same < 0.999:
+            raise AssertionError(f"quant_adamw ({r},{c}): {same:.5f} of codes equal < 0.999")
+        del want, nm, mcn, vcn
+        kw = {k: ADAMW_KW[k] for k in ("b1", "b2")}
+        params = torch.tensor([ADAMW_KW["clip"], ADAMW_KW["finite"], ADAMW_KW["lr"],
+                               ADAMW_KW["b1c"], ADAMW_KW["b2c"], 0, 0, 0],
+                              dtype=torch.float32, device=dev)
+        ukw = dict(kw, eps=ADAMW_KW["eps"], wd=ADAMW_KW["wd"], qmax=127,
+                   uclip=ADAMW_KW["uclip"])
+        upd_args = (master, g, mc, ms, vc, vs, msn, vsn, rand, params)
+        for name, fn, plain, nbytes, ops_per_elem in (
+                ("qadamw_absmax",
+                 lambda: QA.qadamw_absmax(g, mc, ms, vc, vs, params, **kw),
+                 lambda: QA.qadamw_absmax_plain(g, mc, ms, vc, vs, params, **kw),
+                 6 * r * c + 8 * c + 8 * -(-r // QA.ROWS_PER_BLOCK) * c, 15),
+                ("qadamw_update",
+                 lambda: QA.qadamw_update(*upd_args, **ukw),
+                 lambda: QA.qadamw_update_plain(*upd_args, **ukw),
+                 20 * r * c + 16 * c, 40)):
+            k_ms = _timed(fn, flush, iters=10)
+            plain_ms = _timed(plain, flush, iters=3)
+            bound_ms, bound_by = _bound(nbytes, ops_per_elem * r * c, F32_FLOPS)
+            rows.append({"name": f"quant_adamw pass {1 if name == 'qadamw_absmax' else 2} "
+                                 f"({name}) R{r} C{c}", "key": (name, r, c),
+                         "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+            print(f"[kernel] quant_adamw {name} (R,C)=({r},{c}): masters max_err={err:.3e} "
+                  f"(rtol 2e-6), codes equal >= {same:.5f} kernel_ms={k_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+                  f"{nbytes} bytes at 3.35 TB/s)", flush=True)
+        del args, upd_args, master, g, mc, vc, rand, msn, vsn
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_counters(reset: bool = False):
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import qmm_t as QT
+    from repro_torch.kernels import quant_adamw as QA
+
+    if reset:
+        Q.launches = QT.launches = QA.absmax_launches = QA.update_launches = 0
+        Q.shape_launches.clear()
+        QT.shape_launches.clear()
+        QA.shape_launches.clear()
+    return {"qmm": Q.launches, "qmm_t": QT.launches,
+            "qadamw_absmax": QA.absmax_launches, "qadamw_update": QA.update_launches}
+
+
+def train_full(dev):
+    """Drive slice 3's main path once: full-width gemma-2b through
+    ``repro_torch.launch.train.make_trainer`` + ``Trainer.run``, ship-quantized
+    int8 weights, int8 gradients with error feedback, int8 AdamW moments,
+    with the four kernels' counters set to 0 just before and read just
+    after; then the bf16 yardstick (no channel, f32 moments), which must
+    launch none of them."""
+    import torch
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import qmm_t as QT
+    from repro_torch.kernels import quant_adamw as QA
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.quant import PrecisionPlan
+
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    runs = {}
+    for name, plan, mbits, n in (
+            ("all8", PrecisionPlan(model_bits=8, model_storage="ship", grad_bits=8), 8, steps),
+            ("bf16", PrecisionPlan(), 0, 3)):
+        tr = make_trainer("gemma-2b", reduced=False, batch=b, seq=s, steps=n,
+                          lr=TRAIN["lr"], moment_bits=mbits, precision=plan, device=dev,
+                          log_every=1)
+        cfg = tr.cfg
+        if cfg.n_layers != 18 or cfg.d_model != 2048 or cfg.vocab_size != 256000:
+            raise AssertionError(f"not full-width gemma-2b: {cfg}")
+        t0 = time.perf_counter()
+        state = tr.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _train_counters(reset=True)
+        state, losses = tr.run(n, state=state)
+        torch.cuda.synchronize()
+        launches = _train_counters()
+        shapes = {name: [[*key, c] for key, c in counter.items()] for name, counter in
+                  (("qmm", Q.shape_launches), ("qmm_t", QT.shape_launches),
+                   ("quant_adamw", QA.shape_launches))}
+        hist = tr.history
+        step_ms = [1e3 * h["seconds"] for h in hist]
+        ms = statistics.median(step_ms[1:])
+        run = {"losses": losses, "step_ms": step_ms, "ms_per_step": ms,
+               "tokens_per_s": b * s / (ms / 1e3), "init_s": init_s,
+               "skipped": [h["skipped"] for h in hist],
+               "grad_norm": [h["grad_norm"] for h in hist],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               "launches_per_step": {k: v / n for k, v in launches.items()},
+               "shape_launches": shapes}
+        print(f"[train] gemma-2b full width {name} (B={b}, S={s}, {n} steps): losses "
+              f"{[round(x, 4) for x in losses]}; {ms:.1f} ms/step (median of steps 2-{n}), "
+              f"{run['tokens_per_s']:.1f} tokens/s; max_memory_allocated "
+              f"{run['max_memory_allocated'] / 2 ** 30:.2f} GiB; launches per step "
+              f"{run['launches_per_step']}; skipped {run['skipped']}", flush=True)
+        if not (np.isfinite(losses).all() and all(x == 0 for x in run["skipped"])):
+            raise AssertionError(f"[train] {name}: losses {losses}, skipped {run['skipped']}")
+        runs[name] = run
+        if name == "all8":
+            prof = profile_train(tr, state)
+        del tr, state
+        torch.cuda.empty_cache()
+    all8, bf16 = runs["all8"], runs["bf16"]
+    zero = [k for k, v in all8["launches"].items() if v <= 0]
+    if zero:
+        raise AssertionError(f"[train] kernels {zero} were not launched on the main path")
+    if any(bf16["launches"].values()):
+        raise AssertionError(f"[train] the bf16 yardstick launched {bf16['launches']}")
+    if not all8["losses"][-1] < all8["losses"][0]:
+        raise AssertionError(f"[train] loss did not fall: {all8['losses']}")
+    return {**TRAIN, "runs": runs, "profile": prof}
+
+
+def profile_train(tr, state, steps: int = 2):
+    """Where a training step's time goes: ``torch.profiler`` over ``steps``
+    steps — device time by kernel, the device's busy share of the window,
+    and the shares of the ported kernels and of the int64 elementwise
+    kernels (the threefry planes: nothing else in the step runs on int64)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n0 = state.step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = tr.run(n0 + steps, state=state)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups = {"qmm": ("qmm_kernel", "splitk_reduce"), "qmm_t": ("qmm_t_kernel",),
+              "quant_adamw": ("absmax_kernel", "update_kernel"),
+              "threefry (int64 elementwise)": ("long",)}
+    by_group = {k: 0.0 for k in groups}
+    device_ms, n_events = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        n_events += ev.count
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        device_ms += us / 1e3
+        for gname, keys in groups.items():
+            if any(k in ev.key for k in keys) and not (gname == "qmm" and "qmm_t" in ev.key):
+                by_group[gname] += us / 1e3
+                break
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_events_per_step": n_events / steps,
+           "device_ms_per_step": device_ms / steps if device_ms else None,
+           "device_busy_share": device_ms / wall_ms if device_ms else None,
+           "share_of_device_time": {k: v / device_ms for k, v in by_group.items()}
+           if device_ms else None,
+           "ms_per_step_by_group": {k: v / steps for k, v in by_group.items()}}
+    if device_ms:
+        print(f"[train-profile] {steps} steps: wall {out['wall_ms_per_step']:.1f} ms/step "
+              f"(profiled), {out['device_events_per_step']:.0f} device events/step, device "
+              f"busy {out['device_ms_per_step']:.1f} ms/step, busy share "
+              f"{out['device_busy_share']:.3f}; share of device time " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in out["share_of_device_time"].items()), flush=True)
+    else:
+        print("[train-profile] torch.profiler recorded no device time: not measured", flush=True)
+    return out
+
+
+def _update_diff(got, before, after):
+    """The masters' update of ``got`` (got − before) against the reference
+    state's (after − before): per leaf, the entries off by more than
+    TRAIN_CHECK_TOL of the leaf's largest update and the leaf's size; and
+    the relative L2 distance of the two updates over the model."""
+    from repro_torch.tree import tree_leaves
+
+    off, num, den = [], 0.0, 0.0
+    for a, b, z in zip(*(tree_leaves(st.opt.master) for st in (got, after, before))):
+        du_t, du_c = (a.double() - z.double()), (b.double() - z.double())
+        if not float(du_c.abs().max()) > 0:
+            raise AssertionError("[check] the CPU plain path left a master unchanged")
+        off.append((int(((du_t - du_c).abs() > TRAIN_CHECK_TOL * du_c.abs().max()).sum()),
+                    du_c.numel()))
+        num, den = num + float(((du_t - du_c) ** 2).sum()), den + float((du_c ** 2).sum())
+    return off, (num / den) ** 0.5
+
+
+def agree_train(dev):
+    """The reduced gemma-2b at f32, all three channels at 8 bits (every
+    weight shipped), lr 1e-3 from the first step, 3 steps on the card
+    (kernels) and on the CPU's plain path from one initial state. A free run
+    on the card: losses rel 1e-4, the masters' update within a relative L2
+    distance of FREE_RUN_UPDATE_L2. Each step on the card from the CPU's
+    state: ≥ 99.9 % of the masters' update entries within 1e-4 of their
+    leaf's largest update (no leaf with more than 2 + 0.1 % of its entries
+    off), ≥ 99.9 % of the moment codes and of the gradient codes (read from
+    the error-feedback residual) equal."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStreamConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.train import Trainer, default_channels
+    from repro_torch.train.channels import ModelChannel
+    from repro_torch.tree import tree_leaves
+
+    plan = PrecisionPlan(model_bits=8, model_storage="ship", grad_bits=8, backend="cuda")
+    cfg = configs.get_reduced("gemma-2b", dtype=torch.float32, precision=plan)
+    trainers = {}
+    for where in ("cpu", dev):
+        chans = dict(default_channels(plan), model=ModelChannel(plan, ship_min_size=0))
+        trainers[str(where)] = Trainer(
+            cfg, AdamWConfig(moment_bits=8, **TRAIN_CHECK_OPT), channels=chans,
+            device=where, stream_cfg=TokenStreamConfig(cfg.vocab_size, 16, 2))
+    cpu_tr, card_tr = trainers["cpu"], trainers[str(dev)]
+    batches = [cpu_tr.stream.next_batch() for _ in range(3)]
+    cpu_states, cpu_l = [cpu_tr.init_state()], []
+    before = _train_counters()
+    for b in batches:                       # a step consumes its state: keep copies
+        st, m = cpu_tr.step(cpu_states[-1].to("cpu"), b)
+        cpu_states.append(st)
+        cpu_l.append(float(m["loss"]))
+    cpu_n = {k: v - before[k] for k, v in _train_counters().items()}
+
+    before = _train_counters()
+    card, card_l = cpu_states[0].to(dev), []
+    for b in batches:
+        card, m = card_tr.step(card, b)
+        card_l.append(float(m["loss"]))
+    free_l2 = _update_diff(card.to("cpu"), cpu_states[0], cpu_states[-1])[1]
+
+    def equal_share(pairs):
+        pairs = list(pairs)
+        return sum(int(e.sum()) for e in pairs) / sum(e.numel() for e in pairs)
+
+    per_step, step_ok = [], True
+    for i, b in enumerate(batches):
+        got, _ = card_tr.step(cpu_states[i].to(dev), b)
+        got, want = got.to("cpu"), cpu_states[i + 1]
+        off, _ = _update_diff(got, cpu_states[i], want)
+        codes = {k: equal_share(a.codes == c.codes for a, c in zip(
+            tree_leaves(getattr(got.opt, k)), tree_leaves(getattr(want.opt, k))))
+            for k in "mv"}
+        codes["grad (error feedback)"] = equal_share(
+            (a - c).abs() <= 0.25 * c.abs().max() for a, c in zip(
+                tree_leaves(got.channels["grad"]["ef"]),
+                tree_leaves(want.channels["grad"]["ef"])))
+        n_off, n_all = sum(o for o, _ in off), sum(n for _, n in off)
+        step_ok &= (n_off <= 1e-3 * n_all and all(o <= 2 + n // 1000 for o, n in off)
+                    and min(codes.values()) >= 0.999)
+        per_step.append({"master_update_entries_off": n_off, "entries": n_all,
+                         "worst_leaf_off": max(o for o, _ in off), "codes_equal": codes})
+    card_n = {k: v - before[k] for k, v in _train_counters().items()}
+    if not all(card_n.values()) or any(cpu_n.values()):
+        raise AssertionError(f"[check] launches card {card_n}, CPU {cpu_n}")
+    rel = np.abs(np.array(card_l) - cpu_l) / np.abs(cpu_l)
+    print(f"[check] reduced gemma-2b f32 ship8/grad8/moment8, lr 1e-3, 3 steps: free run "
+          f"losses card {card_l} CPU {cpu_l} (max rel {rel.max():.2e}, tol "
+          f"{TRAIN_CHECK_TOL:g}), masters' update rel L2 {free_l2:.2e} (tol "
+          f"{FREE_RUN_UPDATE_L2:g}); per step from the CPU's state {per_step}; "
+          f"card launches {card_n}", flush=True)
+    if not (rel <= TRAIN_CHECK_TOL).all() or free_l2 > FREE_RUN_UPDATE_L2 or not step_ok:
+        raise AssertionError("[check] training: card and CPU plain path disagree")
+    return {"losses_card": card_l, "losses_cpu": cpu_l, "max_rel_loss_diff": float(rel.max()),
+            "free_run_master_update_rel_l2": free_l2, "per_step": per_step}
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -625,6 +1016,8 @@ def main():
     attn_rows = check_paged_attn(dev, flush)
     ds_rows = check_ds_quant(dev, flush)
     qmv_rows = check_qmv(dev, flush)
+    qmm_t_rows = check_qmm_t(dev, flush)
+    adamw_rows = check_quant_adamw(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -632,14 +1025,22 @@ def main():
     small = agree_small(dev)
     linear = train_linear_full(dev)
     linear_small = agree_linear(dev)
+    training = train_full(dev)
+    train_small = agree_train(dev)
 
     kernels = []
+    all8 = {name: {tuple(k[:-1]): k[-1] for k in rows} for name, rows in
+            training["runs"]["all8"]["shape_launches"].items()}
     for r in qmm_rows:
         packed, m, k, n = r.pop("key")
         shapes = runs[4 if packed else 8][1]
         decode = m <= 8
-        r["launches"] = sum(c for (p, mm, kk, nn), c in shapes.items()
-                            if p == packed and kk == k and nn == n and (mm <= 8) == decode)
+        if m == TRAIN["batch"] * TRAIN["seq"]:
+            r["launches"] = all8["qmm"].get((packed, m, k, n), 0)
+        else:
+            r["launches"] = sum(c for (p, mm, kk, nn), c in shapes.items()
+                                if p == packed and kk == k and nn == n
+                                and (mm <= 8) == decode)
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
@@ -663,6 +1064,18 @@ def main():
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmv.cu",
                         "replaces": "src/repro/kernels/qmm.py:120", **r})
+    for r in qmm_t_rows:
+        r["launches"] = all8["qmm_t"].get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm_t.cu",
+                        "replaces": "src/repro/kernels/qmm.py:199", **r})
+    for r in adamw_rows:
+        name, rr, cc = r.pop("key")
+        r["launches"] = all8["quant_adamw"].get((name[len("qadamw_"):], rr, cc), 0)
+        line = 138 if name == "qadamw_absmax" else 164
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/quant_adamw.cu",
+                        "replaces": f"src/repro/kernels/quant_adamw.py:{line}", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in kernels]
@@ -672,7 +1085,8 @@ def main():
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_seconds": build_s, "kernels": kernels,
               "serve": [runs[b][2] for b in (8, 4)], "small_agreement": small,
-              "linear": linear, "linear_agreement": linear_small}
+              "linear": linear, "linear_agreement": linear_small,
+              "train": training, "train_agreement": train_small}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,12 @@ never imports JAX.
 them) as numpy and returns the port's key (:mod:`repro_torch.prng`: int64
 words on the host); a model vector or any other array crosses with
 ``tensor_from_numpy``.
+
+``train_state_from_numpy(d, device)`` takes a reference ``TrainState`` as
+``{"params", "opt": {"step", "m", "v", "master"}, "channels", "step",
+"rng", "epoch"}`` with every tree in the form above (moment QTensors
+included) and returns the port's :class:`~repro_torch.train.TrainState`,
+so both packages can train on from one state.
 """
 from __future__ import annotations
 
@@ -46,3 +52,20 @@ def key_from_numpy(k) -> torch.Tensor:
     if k.shape[-1:] != (2,) or k.dtype != np.uint32:
         raise ValueError(f"a JAX key is uint32[..., 2], got {k.dtype}{list(k.shape)}")
     return torch.from_numpy(k.astype(np.int64))
+
+
+def train_state_from_numpy(d, device="cpu"):
+    """A reference TrainState (as numpy, see the module docstring) as the
+    port's TrainState on ``device``."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.state import TrainState
+
+    opt = d["opt"]
+    return TrainState(
+        params_from_numpy(d["params"], device),
+        OptState(torch.tensor(int(opt["step"]), dtype=torch.int32),
+                 params_from_numpy(opt["m"], device),
+                 params_from_numpy(opt["v"], device),
+                 params_from_numpy(opt["master"], device)),
+        {k: params_from_numpy(v, device) for k, v in d["channels"].items()},
+        int(d["step"]), key_from_numpy(d["rng"]), int(d["epoch"]))

@@ -1,6 +1,6 @@
 """Public wrappers around the kernels (port of ``repro.kernels.ops`` for
 ``quant_dense_apply``, ``paged_attention``, ``ds_quantize``,
-``int8_matvec`` and ``ds_gradient_from_codes``).
+``int8_matvec``, ``ds_gradient_from_codes`` and ``quant_adamw_update``).
 
 Unlike the TPU wrappers nothing is padded to 128: the CUDA kernels mask
 ragged edges themselves.
@@ -13,19 +13,25 @@ from repro_torch import prng
 
 from . import paged_attn as pa_mod
 from . import qmm as qmm_mod
+from . import qmm_t as qmm_t_mod
 from . import qmv as qmv_mod
+from . import quant_adamw as qa_mod
+from . import ref
 from . import stoch_quant as sq_mod
 
 
 def quant_dense_apply(x: torch.Tensor, codes: torch.Tensor,
-                      scale: torch.Tensor, *, packed: bool = False) -> torch.Tensor:
-    """y = x · dequant(codes, scale) for a 2-D code plane.
+                      scale: torch.Tensor, *, packed: bool = False,
+                      transpose: bool = False) -> torch.Tensor:
+    """y = x · dequant(codes, scale)[ᵀ] for a 2-D code plane.
 
-    x: (*lead, K); codes (K, N) int8 or (K, N/2) packed-int4 uint8; scale
-    (1, N) f32. Leading x dims fold into the GEMM's M axis. Returns
-    (*lead, N) f32."""
+    x: (*lead, K) [or (*lead, N) transposed]; codes (K, N) int8 or (K, N/2)
+    packed-int4 uint8; scale (1, N) f32. Leading x dims fold into the GEMM's
+    M axis. Returns (*lead, N) [or (*lead, K)] f32: ``qmm``, or ``qmm_t``
+    for the transposed product."""
     lead = x.shape[:-1]
-    y = qmm_mod.qmm(x.reshape(-1, x.shape[-1]), codes, scale, packed=packed)
+    kern = qmm_t_mod.qmm_t if transpose else qmm_mod.qmm
+    y = kern(x.reshape(-1, x.shape[-1]), codes, scale, packed=packed)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -94,3 +100,33 @@ def ds_gradient_from_codes(codes1, codes2, x, b, scale, s: int) -> torch.Tensor:
     r2 = int8_matvec(codes2, xs) / s - b
     g = int8_matvec(codes1.T, r2) + int8_matvec(codes2.T, r1)
     return g * m / (2.0 * B * s)
+
+
+def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand, *,
+                       qmax: int, b1: float, b2: float, eps: float, wd: float,
+                       lr, b1c, b2c, clip, finite, uclip: float = 0.0):
+    """Fused quantized-moment AdamW leaf update through the two kernels:
+    pass 1 reduces the new-moment column absmaxes per row block, the host
+    side takes their max (exact in any order) to the new scales, pass 2
+    updates the master and re-encodes both moments. The f32 moments never
+    reach device memory.
+
+    master/g (R, C) f32; codes (R, C) int8; scales (C,) f32; rand (R, C)
+    int32 (uint32 words: hi/lo 16 bits drive the m and √v draws);
+    lr/b1c/b2c/clip/finite are step scalars (Python floats or 0-d tensors,
+    the latter may live on the device). Returns
+    (new_master, m_codes, m_scale_new, v_codes, v_scale_new), (C,) scales."""
+    dev = master.device
+    params = torch.cat([
+        torch.stack([torch.as_tensor(v, dtype=torch.float32).to(dev).reshape(())
+                     for v in (clip, finite, lr, b1c, b2c)]),
+        torch.zeros(3, dtype=torch.float32, device=dev)])
+    master, g = master.to(torch.float32), g.to(torch.float32)
+    mx, vx = qa_mod.qadamw_absmax(g, m_codes, m_scale, v_codes, v_scale, params,
+                                  b1=b1, b2=b2)
+    msn = ref.adamw_scale_ref(torch.amax(mx, dim=0), qmax)
+    vsn = ref.adamw_scale_ref(torch.amax(vx, dim=0), qmax)
+    nm, mc, vc = qa_mod.qadamw_update(master, g, m_codes, m_scale, v_codes, v_scale,
+                                      msn, vsn, rand, params, b1=b1, b2=b2, eps=eps,
+                                      wd=wd, qmax=qmax, uclip=uclip)
+    return nm, mc, msn, vc, vsn

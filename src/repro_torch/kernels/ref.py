@@ -13,6 +13,79 @@ def qmm_ref(x, codes, scale):
     return x.to(torch.float32) @ w
 
 
+def qmm_t_ref(g, codes, scale, *, packed: bool = False):
+    """The transposed f32-dequant oracle: g (M, N) · (codes ⊙ scale)ᵀ →
+    (M, K) f32, codes (K, N) int8 or (K, N/2) packed int4."""
+    c = unpack_int4(codes) if packed else codes.to(torch.float32)
+    w = c * scale.to(torch.float32).reshape(1, -1)
+    return g.to(torch.float32) @ w.t()
+
+
+def adamw_moments_ref(g, m_codes, m_scale, v_codes, v_scale, clip, finite, *,
+                      b1: float, b2: float):
+    """Decode the old int8 moments (column scales, v in the √v domain) and
+    take the EMA step, one op at a time in f32; non-finite steps keep the
+    previous moments. Returns (m_store, v_store)."""
+    f32 = torch.float32
+    g32 = g.to(f32) * clip
+    m_prev = m_codes.to(f32) * m_scale.to(f32).reshape(1, -1)
+    v_sqrt = v_codes.to(f32) * v_scale.to(f32).reshape(1, -1)
+    v_prev = v_sqrt * v_sqrt
+    m = b1 * m_prev + (1 - b1) * g32
+    v = b2 * v_prev + (1 - b2) * g32 * g32
+    ok = torch.as_tensor(finite, device=g.device) > 0
+    return torch.where(ok, m, m_prev), torch.where(ok, v, v_prev)
+
+
+def adamw_scale_ref(absmax, qmax: int):
+    """New moment scales from column absmaxes: absmax / qmax, 0 → 1."""
+    return torch.where(absmax == 0, torch.ones_like(absmax), absmax / qmax)
+
+
+def adamw_update_ref(master, m_store, v_store, msn, vsn, rand, *, qmax: int,
+                     eps: float, wd: float, lr, b1c, b2c, finite, uclip: float = 0.0):
+    """The master update and the stochastic re-encode of m and √v against
+    the new column scales, u1/u2 from the high/low 16 bits of one rand
+    word (int32 patterns widened before shifting, ROADMAP C3). Returns
+    (new_master, m_codes, v_codes)."""
+    f32 = torch.float32
+    update = (m_store / b1c) / (torch.sqrt(v_store / b2c) + eps)
+    if uclip:
+        update = torch.clamp(update, -uclip, uclip)
+    mst = master.to(f32)
+    ok = torch.as_tensor(finite, device=master.device) > 0
+    new_master = torch.where(ok, mst - lr * (update + wd * mst), mst)
+    r = rand.to(torch.int64) & 0xFFFFFFFF
+    u1 = (r >> 16).to(f32) * (1.0 / (1 << 16))
+    u2 = (r & 0xFFFF).to(f32) * (1.0 / (1 << 16))
+
+    def code(t, u):
+        lo = torch.floor(t)
+        return torch.clamp(lo + (u < (t - lo)).to(f32), -qmax, qmax).to(torch.int8)
+
+    mc = code(m_store / msn.reshape(1, -1), u1)
+    vc = code(torch.sqrt(v_store) / vsn.reshape(1, -1), u2)
+    return new_master, mc, vc
+
+
+def quant_adamw_ref(master, g, m_codes, m_scale, v_codes, v_scale, rand, *,
+                    qmax: int, b1: float, b2: float, eps: float, wd: float,
+                    lr, b1c, b2c, clip, finite, uclip: float = 0.0):
+    """The fused quantized-moment AdamW leaf update in plain PyTorch (the
+    reference's ``ref.quant_adamw_ref``). master/g (R, C) f32; codes int8;
+    scales (C,)/(1, C) f32; rand (R, C) uint32 words as int32 patterns.
+    Returns (new_master, m_codes, m_scale_new, v_codes, v_scale_new) with
+    (C,) scales."""
+    m_store, v_store = adamw_moments_ref(g, m_codes, m_scale, v_codes, v_scale,
+                                         clip, finite, b1=b1, b2=b2)
+    msn = adamw_scale_ref(torch.amax(m_store.abs(), dim=0), qmax)
+    vsn = adamw_scale_ref(torch.amax(torch.sqrt(v_store), dim=0), qmax)
+    nm, mc, vc = adamw_update_ref(master, m_store, v_store, msn, vsn, rand,
+                                  qmax=qmax, eps=eps, wd=wd, lr=lr, b1c=b1c,
+                                  b2c=b2c, finite=finite, uclip=uclip)
+    return nm, mc, msn, vc, vsn
+
+
 def ds_quant_ref(x, rand, scale, *, s: int):
     """The fused double-sampling quantizer in plain PyTorch (the reference's
     ``ds_quant_ref``): a shared base level ⌊clip(|x|/scale)·s⌋ and two

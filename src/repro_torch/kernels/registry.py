@@ -6,9 +6,12 @@ Two backends:
   decode to bf16, then an f32-accumulated product; paged attention gathers
   and dequantizes pages and runs a one-shot masked softmax; the
   double-sampling pair is two independent zipml draws from a split key
-  (``ds_pair_jnp``), the LSQ gradient f32 matvecs on the decoded pair.
+  (``ds_pair_jnp``), the LSQ gradient f32 matvecs on the decoded pair; the
+  quantized AdamW update decodes, updates and re-encodes each moment with
+  its own key.
 * ``cuda`` — the hand-written Hopper kernels (``csrc/qmm.cu``,
-  ``csrc/paged_attn.cu``, ``csrc/ds_quant.cu``, ``csrc/qmv.cu``). Given CUDA
+  ``csrc/qmm_t.cu``, ``csrc/paged_attn.cu``, ``csrc/ds_quant.cu``,
+  ``csrc/qmv.cu``, ``csrc/quant_adamw.cu``). Given CUDA
   tensors it launches them or raises — it never hands work to a plain
   version; given CPU tensors each kernel wrapper computes its plain version
   (that is how the CPU tests reach it). Its double-sampling pair shares one
@@ -39,13 +42,14 @@ class KernelBackend:
 
     name = "abstract"
 
-    def quant_dense(self, x, qt):
-        """y = x · decode(qt), f32 result (callers cast): decode to bf16,
-        then an f32-accumulated product — the reference ``ref`` numerics as
-        its jitted engine computes them. With an f32 ``x`` the reference's
-        XLA program keeps the bf16 product codes · bf16(scale) in f32
-        (excess precision: the bf16 rounding between the multiply and the
-        f32 dot is dropped), so the port decodes the same way there."""
+    def quant_dense(self, x, qt, *, transpose: bool = False):
+        """y = x · decode(qt) (or · decode(qt)ᵀ), f32 result (callers cast):
+        decode to bf16, then an f32-accumulated product — the reference
+        ``ref`` numerics as its jitted programs compute them. With an f32
+        ``x`` the reference's XLA program keeps the bf16 product
+        codes · bf16(scale) in f32 (excess precision: the bf16 rounding
+        between the multiply and the f32 dot is dropped), so the port
+        decodes the same way there."""
         from repro_torch.quant import QTensor
         from repro_torch.quant.quant_dense import mm_f32
 
@@ -57,7 +61,7 @@ class KernelBackend:
             w = QTensor(qt.codes, qt.scale.to(torch.bfloat16), qt.scheme).decode()
         else:
             w = qt.decode(torch.bfloat16)
-        return mm_f32(x, w)
+        return mm_f32(x, w.t() if transpose else w)
 
     def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
                         block_table, seq_lens, *, softmax_scale):
@@ -76,6 +80,31 @@ class KernelBackend:
     def qt_dot(self, qt, v):
         """decode(qt) @ v; backends may stream codes instead."""
         return qt.decode() @ v
+
+    def quant_adamw_update(self, p_master, g, m_old, v_old, km, kv, *,
+                           bits: int, b1: float, b2: float, eps: float,
+                           b1c, b2c, lr, clip, finite, wd: float,
+                           uclip: float = 0.0):
+        """One quantized-moment AdamW leaf update in plain PyTorch: decode
+        the int8 m/√v QTensors, EMA-update, write the f32 master,
+        re-encode m and √v stochastically with the keys ``km`` and ``kv``
+        (the reference ``ref`` numerics, three full-tensor passes). Returns
+        (new_master, new_m: QTensor, new_v: QTensor)."""
+        from repro_torch.optim.adamw import decode_moment, encode_moment
+
+        g32 = g.to(torch.float32) * clip
+        m_prev = decode_moment(m_old)
+        v_prev = decode_moment(v_old, positive=True)
+        m = b1 * m_prev + (1 - b1) * g32
+        v = b2 * v_prev + (1 - b2) * g32 * g32
+        update = (m / b1c) / (torch.sqrt(v / b2c) + eps)
+        if uclip:
+            update = torch.clamp(update, -uclip, uclip)
+        new_master = p_master - lr * (update + wd * p_master)
+        new_master = torch.where(finite, new_master, p_master)
+        m_q = encode_moment(torch.where(finite, m, m_prev), bits, km)
+        v_q = encode_moment(torch.where(finite, v, v_prev), bits, kv, positive=True)
+        return new_master, m_q, v_q
 
     # the tuple-form hot loop of the linear-model path: the two decoded
     # draws, the storage form (codes1, codes2, scale), and the symmetrized
@@ -123,7 +152,9 @@ class _CudaBackend(KernelBackend):
 
     name = "cuda"
 
-    def quant_dense(self, x, qt):
+    def quant_dense(self, x, qt, *, transpose: bool = False):
+        """Stream the code plane through ``qmm`` (or ``qmm_t`` for x · Wᵀ,
+        the code-domain backward)."""
         sch = qt.scheme
         if sch.grid != "int" or sch.layout != "dense" or qt.ndim != 2:
             raise NotImplementedError(
@@ -141,7 +172,8 @@ class _CudaBackend(KernelBackend):
                 f"cuda quant_dense needs per-column scales, got {tuple(scale.shape)}")
         from . import ops
 
-        return ops.quant_dense_apply(x, qt.codes, scale.reshape(1, n), packed=packed)
+        return ops.quant_dense_apply(x, qt.codes, scale.reshape(1, n), packed=packed,
+                                     transpose=transpose)
 
     def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
                         block_table, seq_lens, *, softmax_scale):
@@ -215,6 +247,42 @@ class _CudaBackend(KernelBackend):
         if shp in ((c,), (1, c)):
             return ops.int8_matvec(codes, scale.reshape(-1) * v32) / denom
         return KernelBackend.qt_dot(self, qt, v)
+
+    def quant_adamw_update(self, p_master, g, m_old, v_old, km, kv, *,
+                           bits: int, b1: float, b2: float, eps: float,
+                           b1c, b2c, lr, clip, finite, wd: float,
+                           uclip: float = 0.0):
+        """The two-pass fused update (``qadamw_absmax`` + ``qadamw_update``)
+        for 2-D+ leaves, flattened to (rows, last dim); the rounding bits
+        are one ``jax.random.bits(km, shape)``-exact uint32 plane whose high
+        and low 16 bits feed the m and √v draws (the reference's ``pallas``
+        backend draw; ``kv`` is unused there). Vectors and scalars take the
+        plain path, as in the reference."""
+        if p_master.ndim < 2 or bits > 8 or km is None:
+            return KernelBackend.quant_adamw_update(
+                self, p_master, g, m_old, v_old, km, kv, bits=bits, b1=b1,
+                b2=b2, eps=eps, b1c=b1c, b2c=b2c, lr=lr, clip=clip,
+                finite=finite, wd=wd, uclip=uclip)
+        from repro_torch import prng
+        from repro_torch.optim.adamw import moment_scheme
+        from repro_torch.quant import QTensor
+
+        from . import ops
+
+        shape = p_master.shape
+        c = shape[-1]
+        rand = prng.bits(km, shape, device=p_master.device,
+                         dtype=torch.int32).reshape(-1, c)
+        nm, mc, msn, vc, vsn = ops.quant_adamw_update(
+            p_master.reshape(-1, c), g.reshape(-1, c),
+            m_old.codes.reshape(-1, c), m_old.scale,
+            v_old.codes.reshape(-1, c), v_old.scale, rand,
+            qmax=2 ** (bits - 1) - 1, b1=b1, b2=b2, eps=eps, wd=wd,
+            uclip=uclip, lr=lr, b1c=b1c, b2c=b2c, clip=clip,
+            finite=finite.to(torch.float32))
+        scheme = moment_scheme(bits, len(shape))
+        return (nm.reshape(shape), QTensor(mc.reshape(shape), msn, scheme),
+                QTensor(vc.reshape(shape), vsn, scheme))
 
 
 def register(backend: KernelBackend) -> KernelBackend:

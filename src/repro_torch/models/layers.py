@@ -13,7 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.quant import QTensor, mm_f32, quant_dense
+from repro_torch.quant import QTensor, ShipWeight, mm_f32, quant_dense
 
 Params = dict
 
@@ -25,6 +25,22 @@ def layer_view(tree, i: int):
     if isinstance(tree, QTensor):
         return tree.index(i)
     return tree[i]
+
+
+def unstack_layers(tree, n: int) -> list:
+    """All ``n`` per-layer views of a stacked param tree at once. Tensors
+    split with one ``unbind`` each, so autograd sees one node per stacked
+    leaf and the backward stacks the n per-layer gradients once (n ``select``
+    views would each scatter into a zero-filled full-size gradient)."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, QTensor):
+        return [tree.index(i) for i in range(n)]
+    if isinstance(tree, ShipWeight):
+        return [ShipWeight(m, tree.qt.index(i))
+                for i, m in enumerate(tree.master.unbind(0))]
+    return list(tree.unbind(0))
 
 
 def _normal(gen, shape, device):
@@ -40,11 +56,11 @@ def init_dense(gen, d_in: int, d_out: int, *, lead=(), dtype=torch.bfloat16,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = x · W in f32, cast back to ``x.dtype``; a QTensor weight goes
-    through the ``quant_dense`` registry op (codes streamed by the kernel
-    on the card)."""
+    """y = x · W in f32, cast back to ``x.dtype``; a QTensor or ShipWeight
+    goes through the ``quant_dense`` registry op (codes streamed by the
+    kernel on the card; a ShipWeight's gradient flows to its master)."""
     w = p["w"]
-    y = quant_dense(x, w) if isinstance(w, QTensor) else mm_f32(x, w)
+    y = quant_dense(x, w) if isinstance(w, (QTensor, ShipWeight)) else mm_f32(x, w)
     y = y.to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
@@ -60,7 +76,7 @@ def init_embedding(gen, vocab: int, d_model: int, *, dtype=torch.bfloat16,
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     table = p["table"]
     if isinstance(table, QTensor):
-        raise NotImplementedError("quantized embedding tables (ROADMAP A4)")
+        raise NotImplementedError("quantized embedding tables (ROADMAP A5)")
     return table[ids.to(torch.int64)]
 
 
@@ -68,8 +84,8 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied readout: logits = x · tableᵀ in f32 (a plain product, as the
     reference leaves it to XLA)."""
     table = p["table"]
-    if isinstance(table, QTensor):
-        raise NotImplementedError("quantized tied unembed, qmm_t (ROADMAP B6)")
+    if isinstance(table, (QTensor, ShipWeight)):
+        raise NotImplementedError("quantized tied unembed (include_embedding, ROADMAP A5)")
     return mm_f32(x, table.t())
 
 

@@ -1,10 +1,13 @@
 """Model assembly for the dense family (port of
-``repro.models.transformer``): ``ModelConfig``, ``init_params``,
-``prefill`` and the single-token decode block.
+``repro.models.transformer``): ``ModelConfig``, ``init_params``, the
+training ``forward`` and ``loss_fn``, ``prefill`` and the single-token
+decode block.
 
 ``lax.scan`` over stacked layers becomes a Python loop over per-layer views
-of the same stacked tensors. MoE, SSM, hybrid and VLM families wait for
-ROADMAP A5.
+of the same stacked tensors; the training forward rematerializes each layer
+in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
+reference's ``jax.checkpoint`` does. MoE, SSM, hybrid and VLM families wait
+for ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -12,12 +15,13 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quant import PrecisionPlan
 
 from . import attention as attn
 from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
-                     layer_view, mlp, rmsnorm, unembed)
+                     layer_view, mlp, rmsnorm, unembed, unstack_layers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +45,7 @@ class ModelConfig:
     logit_chunk: int = 512
     tie_embeddings: bool = True
     precision: PrecisionPlan = PrecisionPlan()
+    remat: bool = True
 
     @property
     def vocab_padded(self) -> int:
@@ -105,6 +110,52 @@ def _readout(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def final_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm + tied readout → (…, V) f32 logits at every position."""
     return _readout(params, cfg, rmsnorm(params["final_norm"], h))
+
+
+def _layer_fwd(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+    h = x + attn.attention_block(layer["attn"], rmsnorm(layer["ln1"], x), cfg.attn_spec)
+    return h + mlp(layer["mlp"], rmsnorm(layer["ln2"], h), cfg.mlp_act)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """tokens (B, S) → final-normed hidden states (B, S, d), differentiable
+    (weights may be dense, QTensor or ShipWeight leaves). Each layer is
+    recomputed in the backward when ``cfg.remat`` (the saved state is one
+    (B, S, d) carry per layer)."""
+    _check_dense(cfg)
+    if cfg.precision.act_bits:
+        raise NotImplementedError(
+            "the activation channel (act_bits) needs qmm_qout (ROADMAP B7)")
+    x = embed(params["embed"], tokens).to(cfg.dtype)
+    for layer in unstack_layers(params["layers"], cfg.n_layers):
+        if cfg.remat:
+            x = checkpoint(_layer_fwd, cfg, layer, x, use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, layer, x)
+    return rmsnorm(params["final_norm"], x)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy, in sequence chunks of
+    ``cfg.logit_chunk`` so the (B, S, V) f32 logits never exist at once
+    (the reference's chunking: a length that the chunk does not divide is
+    one chunk). The gold logit is read with a gather — the same value as the
+    reference's masked sum, which only avoids an all-gather across a
+    vocab-sharded mesh."""
+    h = forward(params, tokens, cfg)
+    b, s, _ = h.shape
+    cs = min(cfg.logit_chunk, s)
+    if s % cs:
+        cs = s
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, s, cs):
+        logits = _readout(params, cfg, h[:, start:start + cs])
+        logz = torch.logsumexp(logits, dim=-1)
+        tc = targets[:, start:start + cs].to(torch.int64)
+        gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (b * s)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,

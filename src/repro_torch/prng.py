@@ -22,6 +22,7 @@ import torch
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _SMALL = 16          # counts up to this many are hashed as Python integers
+CHUNK = 1 << 24      # flat indices hashed per pass of a large plane
 
 
 def threefry2x32(k1, k2, x1, x2):
@@ -91,18 +92,48 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 values in
-    [0, 2**32): the xor of the two hash words of each element's counter."""
-    b1, b2 = _hash_counts(key, tuple(shape), device)
-    return b1 ^ b2
+def _plane(key: torch.Tensor, shape: tuple, device, combine, dtype):
+    """``combine(w1, w2)`` of the two hash words of every element of
+    ``shape``, as a ``dtype`` plane. Each word depends only on the key and
+    the element's flat index (partitionable mode), so a plane larger than
+    :data:`CHUNK` is hashed CHUNK indices at a time into its output: the
+    int64 temporaries of one pass stay ~CHUNK × 8 bytes each, whatever the
+    plane's size, and the result is the same bits."""
+    device = key.device if device is None else torch.device(device)
+    n = math.prod(shape)
+    if key.ndim != 1 or n <= CHUNK:
+        return combine(*_hash_counts(key, shape, device)).to(dtype)
+    k1, k2 = _words(key, device, 0)
+    out = torch.empty(n, dtype=dtype, device=device)
+    for start in range(0, n, CHUNK):
+        stop = min(n, start + CHUNK)
+        idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+        hi = idx >> 32 if stop > MASK + 1 else 0
+        out[start:stop] = combine(*threefry2x32(k1, k2, hi, idx & MASK))
+    return out.reshape(shape)
+
+
+def _xor(w1, w2):
+    return w1 ^ w2
+
+
+def _unit_float(w1, w2):
+    m = ((w1 ^ w2) >> 9) | 0x3F800000
+    return m.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bits(key: torch.Tensor, shape, device=None, dtype=torch.int64) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: the xor of the two hash
+    words of each element's counter. ``dtype=int64`` holds the values in
+    [0, 2**32); ``dtype=int32`` the same 32-bit patterns (what the kernels
+    read as uint32), at half the memory."""
+    return _plane(key, tuple(shape), device, _xor, dtype)
 
 
 def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` in [0, 1): the top 23 bits
     as the mantissa of a float in [1, 2), minus 1."""
-    m = (bits(key, shape, device) >> 9) | 0x3F800000
-    return m.to(torch.int32).view(torch.float32) - 1.0
+    return _plane(key, tuple(shape), device, _unit_float, torch.float32)
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int,

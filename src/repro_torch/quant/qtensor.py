@@ -3,7 +3,8 @@
 The arithmetic is byte-identical to the reference for the int grid:
 scale = absmax/qmax (absmax 0 → 1), codes = clip(round(x / scale), ±qmax)
 — a *division*, and ``torch.round`` rounds half to even as ``jnp.round``
-does. Packed int4 is offset-binary (code + 8), the low nibble holding the
+does; stochastic rounding ⌊t⌋ + [u < t − ⌊t⌋] draws u bit-exact with
+``jax.random.uniform`` (:mod:`repro_torch.prng`). Packed int4 is offset-binary (code + 8), the low nibble holding the
 even element; only ``uint8`` is shifted (torch on the CPU cannot shift
 ``uint32``).
 
@@ -182,14 +183,14 @@ class QTensor:
 def encode(x: torch.Tensor, scheme: QScheme, key: torch.Tensor | None = None,
            scale: torch.Tensor | None = None, backend=None) -> QTensor:
     """Quantize ``x`` under ``scheme`` (the reference's ``encode_jnp``
-    numerics). The int grid takes nearest rounding (int8 codes; packed uint8
-    nibbles at ``packed=True``); the zipml grid stochastic rounding (``key``
-    required) or nearest; ``rounding='ds'`` draws the §2.2 pair through
-    :func:`ds_pair`. ``scale=None`` computes the scheme's own scale."""
+    numerics). Both grids take stochastic rounding (``key`` required; the
+    uniform draw is ``jax.random.uniform(key, x.shape)``-exact) or nearest:
+    the int grid gives int8 codes (packed uint8 nibbles at ``packed=True``),
+    the zipml grid codes on s intervals; ``rounding='ds'`` draws the §2.2
+    pair through :func:`ds_pair`. ``scale=None`` computes the scheme's own
+    scale."""
     if scheme.rounding == "ds":
         return ds_pair(x, scheme, key, scale=scale, backend=backend)
-    if scheme.grid == "int" and scheme.rounding != "nearest":
-        _todo(f"{scheme.rounding!r} rounding on the int grid", "A1")
     if scheme.rounding == "stochastic" and key is None:
         raise ValueError("stochastic rounding requires a PRNG key")
     if scale is None:
@@ -201,7 +202,8 @@ def encode(x: torch.Tensor, scheme: QScheme, key: torch.Tensor | None = None,
                              None if scheme.rounding == "nearest" else key)
     qmax = float(scheme.qmax)
     t = x.to(torch.float32) / scale
-    codes = torch.clamp(torch.round(t), -qmax, qmax).to(_code_dtype(scheme.qmax))
+    rkey = None if scheme.rounding == "nearest" else key
+    codes = torch.clamp(_round(t, rkey), -qmax, qmax).to(_code_dtype(scheme.qmax))
     if scheme.packed:
         codes = pack_int4(codes)
     return QTensor(codes, scale, scheme)

@@ -1,10 +1,17 @@
 """quant_dense — the one registry op every QTensor-weighted matmul routes
-through (port of ``repro.quant.quant_dense``, forward only).
+through, forward and backward (port of ``repro.quant.quant_dense``).
 
 ``ref`` decodes the weight to bf16 and multiplies with f32 accumulation;
 ``cuda`` streams the int8 / packed-int4 codes through the hand-written
-``qmm`` kernel. The code-domain VJP and ``ShipWeight`` wait for the
-training slice (ROADMAP A4).
+``qmm`` kernel, and the transposed product x · Wᵀ through ``qmm_t``.
+
+:class:`ShipWeight` is the quantize-on-gather training form: the int codes
+the matmul streams plus the dense ``master`` the straight-through gradient
+flows to. Its product is one ``torch.autograd.Function``
+(the reference's ``_qd_ste`` custom VJP): the forward is the registry's
+``quant_dense``; the backward computes dx in the code domain —
+``quant_dense(g, qt, transpose=True)``, the ``qmm_t`` kernel on the card —
+and dW = Σ x ⊗ g as a plain product emitted in the master's dtype.
 """
 from __future__ import annotations
 
@@ -13,18 +20,26 @@ import torch
 from .qtensor import QTensor
 
 
-def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (…, K) · b (K, N) → f32 with f32 accumulation — what
-    ``jnp.einsum(..., preferred_element_type=f32)`` computes. On the card,
-    bf16 operands go to one bf16 GEMM with an f32 output (no f32 copy of a
-    large weight); elsewhere both operands widen to f32, which is exact for
-    the products."""
-    if a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16, torch.float16) \
-            and _mm_has_out_dtype():
-        lead = a.shape[:-1]
-        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return y.reshape(*lead, b.shape[-1])
-    return a.to(torch.float32) @ b.to(torch.float32)
+class ShipWeight:
+    """A shipped (quantize-on-gather) weight: ``qt`` int codes for the
+    matmul + the dense ``master`` the STE gradient flows back to."""
+
+    __slots__ = ("master", "qt")
+
+    def __init__(self, master: torch.Tensor, qt: QTensor):
+        self.master = master
+        self.qt = qt
+
+    @property
+    def shape(self):
+        return self.qt.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.qt.ndim
+
+    def __repr__(self):
+        return f"ShipWeight({self.qt!r})"
 
 
 def _mm_has_out_dtype() -> bool:
@@ -33,11 +48,96 @@ def _mm_has_out_dtype() -> bool:
     return "dtype" in torch.ops.aten.mm.overloads()
 
 
-def quant_dense(x: torch.Tensor, w, *, backend=None) -> torch.Tensor:
-    """y = x · W for a QTensor (through the kernel registry) or a dense
-    weight (plain product), f32 result; the caller casts."""
-    if isinstance(w, QTensor):
-        from repro_torch.kernels import registry
+def _half(t: torch.Tensor) -> bool:
+    return t.dtype in (torch.bfloat16, torch.float16)
 
-        return registry.resolve(backend, x.device).quant_dense(x, w)
+
+class _MmF32(torch.autograd.Function):
+    """a (M, K) · b (K, N) half-precision operands → f32 with f32
+    accumulation, one GEMM on the card. PyTorch has no derivative for
+    ``mm(..., out_dtype=)`` ("derivative for aten::mm is not implemented",
+    torch 2.11 on the H100), so the backward is written here as the same
+    kind of product (the cotangent rounded to the operands' dtype, f32
+    accumulation, cast to each operand's dtype): no operand is ever widened
+    to an f32 copy — the tied unembed's (256000, 2048) table included."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gh = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(gh, b.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.mm(a.t(), gh, out_dtype=torch.float32).to(b.dtype)
+        return da, db
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (…, K) · b (K, N) → f32 with f32 accumulation — what
+    ``jnp.einsum(..., preferred_element_type=f32)`` computes. On the card,
+    bf16 operands go to one bf16 GEMM with an f32 output (no f32 copy of a
+    large weight), differentiable through :class:`_MmF32`; elsewhere both
+    operands widen to f32, which is exact for the products."""
+    if a.is_cuda and a.dtype == b.dtype and _half(a) and _mm_has_out_dtype():
+        lead = a.shape[:-1]
+        y = _MmF32.apply(a.reshape(-1, a.shape[-1]), b)
+        return y.reshape(*lead, b.shape[-1])
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _backend(backend, device):
+    from repro_torch.kernels import registry
+
+    return registry.resolve(backend, device)
+
+
+class _ShipDense(torch.autograd.Function):
+    """y = x · decode(qt) with the straight-through gradient to the master
+    (the reference's ``_qd_ste``). Integer codes and scales get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, master, codes, scale, scheme, backend):
+        qt = QTensor(codes, scale, scheme)
+        ctx.save_for_backward(x, codes, scale)
+        ctx.meta = (master.dtype, scheme, backend)
+        return _backend(backend, x.device).quant_dense(x, qt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, codes, scale = ctx.saved_tensors
+        mdtype, scheme, backend = ctx.meta
+        qt = QTensor(codes, scale, scheme)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _backend(backend, g.device).quant_dense(
+                g, qt, transpose=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # layers.dense casts y to x.dtype, so g's values are exact in
+            # x's dtype and Σ_batch x ⊗ g runs as one product there
+            dw = mm_f32(x.reshape(-1, x.shape[-1]).t(),
+                        g.reshape(-1, g.shape[-1]).to(x.dtype)).to(mdtype)
+        return dx, dw, None, None, None, None
+
+
+def quant_dense(x: torch.Tensor, w, *, backend=None) -> torch.Tensor:
+    """y = x · W in f32; the caller casts.
+
+    ``w``: a :class:`QTensor` (codes stream through the kernel backend), a
+    :class:`ShipWeight` (the same, plus the straight-through master
+    gradient), or a dense weight (plain product). Weights are 2-D (K, N).
+    The transposed product x · Wᵀ (the backward's dx) is the backends'
+    ``quant_dense(..., transpose=True)``."""
+    if isinstance(w, ShipWeight):
+        qt = w.qt
+        return _ShipDense.apply(x, w.master, qt.codes, qt.scale, qt.scheme,
+                                backend)
+    if isinstance(w, QTensor):
+        return _backend(backend, x.device).quant_dense(x, w)
     return mm_f32(x, w)

@@ -3,11 +3,11 @@
 
 The dataclass carries every field of the reference so a scheme crosses the
 numpy bridge unchanged (``QScheme(**fields)``). The port encodes and
-decodes the symmetric int grid (``grid='int'``, nearest rounding, nibble-packed
-int4) and the paper's interval grid (``grid='zipml'``, stochastic, nearest and
-double-sampled rounding) under tensor, row, column and channel scaling; the
-level grid, the bitplane layout and stochastic rounding on the int grid raise
-in ``qtensor`` until the ROADMAP items that port them.
+decodes the symmetric int grid (``grid='int'``, nibble-packed int4) and the
+paper's interval grid (``grid='zipml'``), each with stochastic, nearest and
+double-sampled rounding, under tensor, row, column and channel scaling; the
+level grid and the bitplane layout raise in ``qtensor`` until the ROADMAP
+items that port them.
 """
 from __future__ import annotations
 

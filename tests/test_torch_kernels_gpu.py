@@ -9,7 +9,11 @@ Tolerances: ``qmm`` and ``qmv`` rel 1e-5 of the largest output (f32
 dequant, f32 accumulation order); paged attention abs 1e-5 (both f32 online
 softmax); ``ds_quant`` bit-exact (same rand, IEEE division, no FMA
 contraction); ``train_linear`` per-epoch losses rel 1e-5 between the card
-and the CPU's plain path (same keys, same codes; sums in another order).
+and the CPU's plain path (same keys, same codes; sums in another order);
+``qmm_t`` rel 1e-5 of the largest output; ``quant_adamw`` the reference's
+contract (masters rtol 2e-6 / atol 2e-6, scales rtol 1e-6, ≥ 99.9 % of
+codes equal, off by at most one level); the reduced training step on the
+card against the CPU's plain path: losses rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,9 @@ from repro_torch import quant as tquant
 from repro_torch import prng
 from repro_torch.kernels import paged_attn as tpa
 from repro_torch.kernels import qmm as tqmm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import qmm_t as tqmm_t
+from repro_torch.kernels import quant_adamw as tqa
 from repro_torch.kernels import qmv as tqmv
 from repro_torch.kernels import stoch_quant as tsq
 from repro_torch.serve import pages as tpg
@@ -175,3 +182,104 @@ def test_train_linear_card_matches_cpu_plain_path(cuda):
                                          backend="cuda"),
                        model="lssvm", epochs=2, lr=0.3, device="cpu")
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-5)
+
+
+QMM_T_SHAPES = [(1, 40, 24), (5, 64, 48), (13, 96, 130), (130, 257, 256),
+                (7, 33, 130), (256, 2048, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QMM_T_SHAPES)
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_qmm_t_kernel_matches_plain(cuda, m, k, n, bits, packed, gdtype):
+    qt = _weights(k, n, bits, packed).to(cuda)
+    g = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, n)).astype(
+        np.float32)).to(cuda, gdtype)
+    before = tqmm_t.launches
+    got = tqmm_t.qmm_t(g, qt.codes, qt.scale, packed=packed)
+    assert tqmm_t.launches == before + 1
+    want = tqmm_t.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
+    torch.cuda.synchronize()
+    assert got.shape == (m, k) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def _adamw_leaf(r, c, seed, device):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return (t(rng.normal(0, 1, (r, c)).astype(np.float32)),
+            t((rng.normal(0, 1, (r, c)) * 0.1).astype(np.float32)),
+            t(rng.integers(-127, 128, (r, c)).astype(np.int8)),
+            t((np.abs(rng.normal(0, 1, c)) * 0.01 + 1e-4).astype(np.float32)),
+            t(rng.integers(0, 128, (r, c)).astype(np.int8)),
+            t((np.abs(rng.normal(0, 1, c)) * 0.01 + 1e-4).astype(np.float32)),
+            t(rng.integers(0, 2 ** 32, (r, c), dtype=np.uint32).view(np.int32)))
+
+
+OPK = dict(qmax=127, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, lr=1e-3, b1c=0.1,
+           b2c=0.05, clip=1.0, finite=1.0, uclip=10.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 7), (96, 160), (257, 130), (513, 2048), (18, 2048)])
+@pytest.mark.parametrize("finite", [1.0, 0.0])
+def test_quant_adamw_kernels_match_plain(cuda, shape, finite):
+    args = _adamw_leaf(*shape, seed=shape[0], device=cuda)
+    kw = dict(OPK, finite=finite)
+    before = (tqa.absmax_launches, tqa.update_launches)
+    got = tops.quant_adamw_update(*args, **kw)
+    assert (tqa.absmax_launches, tqa.update_launches) == (before[0] + 1, before[1] + 1)
+    want = tops.quant_adamw_update(*(a.cpu() for a in args), **kw)
+    torch.cuda.synchronize()
+    nm, mc, ms, vc, vs = [x.cpu() for x in got]
+    nm_p, mc_p, ms_p, vc_p, vs_p = want
+    torch.testing.assert_close(nm, nm_p, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(ms, ms_p, rtol=1e-6, atol=0)
+    torch.testing.assert_close(vs, vs_p, rtol=1e-6, atol=0)
+    for a, b in ((mc, mc_p), (vc, vc_p)):
+        assert (a == b).float().mean().item() >= 0.999
+        assert (a.int() - b.int()).abs().max().item() <= 1
+    if not finite:
+        assert torch.equal(nm, args[0].cpu())
+
+
+@pytest.mark.gpu
+def test_quant_adamw_absmax_blocks_match_plain(cuda):
+    args = _adamw_leaf(600, 300, seed=3, device=cuda)
+    params = torch.tensor([0.5, 1, 1e-3, 0.1, 0.05, 0, 0, 0], dtype=torch.float32,
+                          device=cuda)
+    mx, vx = tqa.qadamw_absmax(args[1], *args[2:6], params, b1=0.9, b2=0.95)
+    mxp, vxp = tqa.qadamw_absmax(args[1].cpu(), *(a.cpu() for a in args[2:6]),
+                                 params.cpu(), b1=0.9, b2=0.95)
+    assert mx.shape == (3, 300)
+    torch.testing.assert_close(mx.cpu(), mxp, rtol=1e-6, atol=0)
+    torch.testing.assert_close(vx.cpu(), vxp, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_train_step_card_matches_cpu_plain_path(cuda):
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStreamConfig
+    from repro_torch.kernels import qmm as tqmm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.train import Trainer, default_channels
+    from repro_torch.train.channels import ModelChannel
+
+    plan = PrecisionPlan(model_bits=8, model_storage="ship", grad_bits=8, backend="cuda")
+    cfg = configs.get_reduced("gemma-2b", dtype=torch.float32, precision=plan)
+    losses, start = {}, None
+    for where in ("cpu", cuda):
+        chans = dict(default_channels(plan), model=ModelChannel(plan, ship_min_size=0))
+        # lr 1e-3 from the first step: the losses see the updates
+        tr = Trainer(cfg, AdamWConfig(moment_bits=8, lr=1e-3, warmup_steps=1),
+                     channels=chans, device=where,
+                     stream_cfg=TokenStreamConfig(cfg.vocab_size, 16, 2))
+        start = tr.init_state() if start is None else start   # one set of weights
+        before = (tqmm.launches, tqmm_t.launches, tqa.absmax_launches)
+        _, losses[str(where)] = tr.run(3, state=start.to(where))
+        launched = [a - b for a, b in zip(
+            (tqmm.launches, tqmm_t.launches, tqa.absmax_launches), before)]
+        assert all(launched) if where == cuda else not any(launched)
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)

@@ -115,7 +115,7 @@ def test_layer_index_is_a_view():
 def test_unported_paths_name_the_roadmap():
     x = torch.randn(4, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tquant.encode(x, tquant.QScheme.int_symmetric(8, rounding="stochastic"))
+        tquant.encode(x, tquant.QScheme(bits=4, grid="levels", rounding="nearest"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tqat.quantize_param_tree({"w": x}, bits=8, optimal=True)
 

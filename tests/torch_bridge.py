@@ -28,6 +28,17 @@ def bridge(tree, device="cpu"):
     return params_from_numpy(jax_to_numpy(tree), device)
 
 
+def train_state_to_numpy(state):
+    """A reference ``TrainState`` in the numpy form
+    ``interop.train_state_from_numpy`` reads."""
+    return {"params": jax_to_numpy(state.params),
+            "opt": {"step": int(state.opt.step), "m": jax_to_numpy(state.opt.m),
+                    "v": jax_to_numpy(state.opt.v),
+                    "master": jax_to_numpy(state.opt.master)},
+            "channels": jax_to_numpy(state.channels), "step": int(state.step),
+            "rng": np.asarray(state.rng), "epoch": int(state.epoch)}
+
+
 def key(jkey):
     """A JAX PRNG key → the port's key (the same threefry words)."""
     return key_from_numpy(np.asarray(jkey))
