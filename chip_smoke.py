@@ -36,7 +36,21 @@ NVIDIA card.
    bf16 yardstick (no channel, f32 moments, 3 steps), which must launch none
    of the four; trains the reduced model at f32 on the card and on the CPU's
    plain path from one state and checks losses, masters and codes;
-6. prints a ``{"kernels": [...]}`` line and, last, the result line
+6. slice 4 — checks ``qmm_bitplane`` (rel 1e-5) at 9 and 5 planes and the
+   serving path's shapes (decode M 4, verify window M 16, prefill M 128);
+   ``[serve-bitplane]`` writes full-width gemma-2b's 8-bit bitplane weights
+   as a ``weights-bitplane-v1`` artifact under ``build/``, serves the same
+   8-request trace at kv 8 from the artifact loaded back (``serve_engine(
+   weight_layout="bitplane", ship_dir=...)``), then again at
+   ``set_weight_bits(4)``, with the counters set to 0 just before and read
+   just after each run (``qmm_bitplane`` > 0, ``qmm`` == 0); ``[spec]``
+   serves the trace with ``spec_decode=3, draft_bits=4`` and checks its
+   tokens equal the 8-bit run's, then with ``draft_bits=8`` (the draft is
+   the served model) and checks every draft token is accepted; ``[check]`` serves the reduced model at
+   f32 with 8-bit bitplane weights plain, at ``set_weight_bits(2)`` and with
+   speculation, on the card and on the CPU's plain path, and checks equal
+   tokens;
+7. prints a ``{"kernels": [...]}`` line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -44,6 +58,7 @@ machine without a card, or a directory without the repository's sources.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -107,6 +122,20 @@ TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=1)
 # part by far more than TRAIN_CHECK_TOL; a frozen master or a wrong lr gives
 # 0.1 to 1
 FREE_RUN_UPDATE_L2 = 5e-2
+# qmm_bitplane: the served 8-bit artifact (9 planes) and its 4-bit draft
+# view (5 planes), at decode (M 4 = the slots), the verify window (M 16 = 4
+# slots × (3 drafts + 1)) and prefill (M = the largest prompt bucket of the
+# served trace, and 128, the largest there can be), for gemma-2b's (K, N):
+# q/o, k/v, gate/up, down; plus one ragged shape
+QBP_PLANES = (9, 5)
+QBP_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+QBP_RAGGED = (13, 1001, 1000)
+SERVE = dict(n_requests=8, max_slots=4, page_size=16, max_prompt=128, max_new=32)
+SPEC = dict(spec_decode=3, draft_bits=4)
+# the control: a draft at the serving bits is the served model itself, so
+# every drafted token must be accepted (the verify window computes what
+# sequential decode computes) — acceptance exactly 1
+SPEC_CONTROL = dict(spec_decode=3, draft_bits=8)
 
 
 def _fail(msg: str, code: int):
@@ -145,11 +174,14 @@ def check_qmm(dev, flush):
     from repro_torch.kernels import qmm as Q
     from repro_torch.quant import QScheme, encode
 
+    # serving's prefill runs gate/up at every prompt bucket: M 128 (the
+    # largest there can be) and the largest of the trace are checked
+    prefill_m = max(_prompt_buckets())
     rows = []
     gen = torch.Generator(device=dev).manual_seed(1)
     for bits in (8, 4):
         packed = bits == 4
-        for m, k, n in QMM_SHAPES:
+        for m, k, n in [*QMM_SHAPES, (prefill_m, 2048, 16384)]:
             w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
             qt = encode(w, QScheme.int_symmetric(bits, scaling="channel",
                                                  rounding="nearest", packed=packed))
@@ -171,7 +203,9 @@ def check_qmm(dev, flush):
             # scale comes after the contraction, so one bf16 tensor-core GEMM
             # with f32 accumulation computes the same function: the bf16 rate
             bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
-            rows.append({"name": f"qmm int{bits} M{m} K{k} N{n}", "key": (packed, m, k, n),
+            role = f" (prefill, bucket {m})" if m in (prefill_m, SERVE["max_prompt"]) else ""
+            rows.append({"name": f"qmm int{bits} M{m} K{k} N{n}{role}",
+                         "key": (packed, m, k, n),
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
             print(f"[kernel] qmm int{bits} (M,K,N)=({m},{k},{n}): max_err={err:.3e} "
@@ -328,10 +362,11 @@ def _device_kernels(prof):
     return by_kernel, n_events
 
 
-def profile_decode(engine, steps: int = 5):
+def profile_decode(engine, steps: int = 5, what: str = "decode steps"):
     """Where a decode step's time goes: ``torch.profiler`` over ``steps``
-    steady decode steps of 4 live requests — device time by kernel, and the
-    device's idle share of the window's wall time."""
+    steady decode steps (speculative windows on a speculative engine) of 4
+    live requests — device time by kernel, and the device's idle share of
+    the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import make_trace
@@ -358,7 +393,7 @@ def profile_decode(engine, steps: int = 5):
            "device_idle_share": 1 - device_ms / wall_ms if device_ms else None,
            "top_kernels_ms_per_step": {k: v / steps for k, v in top}}
     if device_ms:
-        print(f"[profile] {steps} decode steps x 4 live slots: wall {out['wall_ms_per_step']:.2f} "
+        print(f"[profile] {steps} {what} x 4 live slots: wall {out['wall_ms_per_step']:.2f} "
               f"ms/step, {out['device_events_per_step']:.0f} device events/step, device busy "
               f"{out['device_ms_per_step']:.2f} ms/step, idle share "
               f"{out['device_idle_share']:.3f}; top: " + "; ".join(
@@ -977,6 +1012,358 @@ def agree_train(dev):
             "free_run_master_update_rel_l2": free_l2, "per_step": per_step}
 
 
+def _prompt_buckets() -> collections.Counter:
+    """Prefill M of the served trace: its prompts' lengths rounded up to
+    whole pages (``ServeEngine._bucket``), with how many prompts each."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_trace
+
+    page = SERVE["page_size"]
+    trace = make_trace(SERVE["n_requests"], configs.get_config("gemma-2b").vocab_size,
+                       max_new=SERVE["max_new"], max_prompt=SERVE["max_prompt"], seed=0)
+    return collections.Counter(-(-len(r.prompt) // page) * page for r in trace)
+
+
+def check_qmm_bitplane(dev, flush):
+    """``qmm_bitplane`` against its plain version (rel 1e-5 of the largest
+    output) at the serving path's shapes with 9 and 5 planes, bf16 x; timed
+    beside the plain version, the bf16 ``torch.matmul`` on the decoded
+    weight and the bound (the code words, x, y and the scales over HBM
+    bandwidth, or 2·M·K·N at the bf16 rate: the codes are exact in bf16 and
+    the scale comes after the contraction)."""
+    import torch
+    from repro_torch.kernels import qmm_bitplane as QBP
+    from repro_torch.quant import QScheme, encode
+
+    buckets = _prompt_buckets()
+    verify_m, prefill_m = SERVE["max_slots"] * (SPEC["spec_decode"] + 1), max(buckets)
+    roles = {SERVE["max_slots"]: "decode", verify_m: "verify window",
+             prefill_m: f"prefill, bucket {prefill_m}",
+             SERVE["max_prompt"]: f"prefill, bucket {SERVE['max_prompt']}"}
+    if verify_m in buckets:
+        roles[verify_m] += f" and prefill, bucket {verify_m}"
+    if SERVE["max_prompt"] not in buckets:
+        roles[SERVE["max_prompt"]] += ": the largest, no such prompt in the trace"
+    shapes = [(m, k, n) for m in roles for k, n in QBP_KN]
+    rows, weights = [], {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for p in QBP_PLANES:
+        for m, k, n in [*shapes, QBP_RAGGED]:
+            if (k, n) not in weights:
+                w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+                weights[(k, n)] = encode(w, QScheme.bitplane(8))
+                del w
+            qt = weights[(k, n)].slice_planes(p - 1)
+            planes = qt.codes.contiguous()
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            got = QBP.qmm_bitplane(x, planes, qt.scale)
+            want = QBP.qmm_bitplane_plain(x, planes, qt.scale)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ref_max = float(want.abs().max())
+            if not err <= QMM_TOL * ref_max:
+                raise AssertionError(f"qmm_bitplane P{p} {m}x{k}x{n}: max err {err} "
+                                     f"> {QMM_TOL} x {ref_max}")
+            w_bf16 = qt.decode(torch.bfloat16)
+            ms = _timed(lambda: QBP.qmm_bitplane(x, planes, qt.scale), flush)
+            plain_ms = _timed(lambda: QBP.qmm_bitplane_plain(x, planes, qt.scale), flush,
+                              iters=5)
+            lib_ms = _timed(lambda: torch.matmul(x, w_bf16), flush)
+            nbytes = planes.numel() * 4 + x.numel() * 2 + m * n * 4 + n * 4
+            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
+            role = roles.get(m, "ragged, off path")
+            if m == verify_m and p != 9 and verify_m not in buckets:
+                role = "verify-window shape; the window runs 9 planes: off path"
+            rows.append({"name": f"qmm_bitplane P{p} M{m} K{k} N{n} ({role})",
+                         "key": (p, m, k, n), "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+            print(f"[kernel] qmm_bitplane P={p} (M,K,N)=({m},{k},{n}) {role}: "
+                  f"max_err={err:.3e} (tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (bf16 matmul) "
+                  f"bound_ms={bound_ms:.5f} ({bound_by}, {nbytes} bytes)", flush=True)
+            del x, got, want, w_bf16
+    del weights
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _bitplane_counters(reset: bool = False):
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import qmm_bitplane as QBP
+
+    if reset:
+        Q.launches = PA.launches = QBP.launches = 0
+        Q.shape_launches.clear()
+        QBP.shape_launches.clear()
+    return {"qmm_bitplane": QBP.launches, "qmm": Q.launches,
+            "paged_decode_attn": PA.launches}, dict(QBP.shape_launches)
+
+
+def _drive(engine, trace):
+    """Serve ``trace`` through ``engine.submit``/``step`` (what
+    ``engine.run`` does), remembering each request's slot."""
+    slot_of, out = {}, {}
+    for r in trace:
+        engine.submit(r)
+    while engine.busy:
+        for f in engine.step():
+            out[f.rid] = f
+        for i, st in enumerate(engine._slots):
+            if st is not None:
+                slot_of[st["req"].rid] = i
+    return out, slot_of
+
+
+def _check_served(engine, results, cfg):
+    if cfg.n_layers != 18 or cfg.d_model != 2048 or cfg.vocab_size != 256000:
+        raise AssertionError(f"not full-width gemma-2b: {cfg}")
+    if len(results) != SERVE["n_requests"]:
+        raise AssertionError(f"{len(results)} of {SERVE['n_requests']} requests finished")
+    engine.allocator.check_leaks(0)
+    n_gen = 0
+    for f in results.values():
+        gen = f.tokens[f.prompt_len:]
+        if len(gen) != f.n_generated or f.n_generated < 1:
+            raise AssertionError(f"request {f.rid}: {f.n_generated} tokens")
+        if gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {f.rid}: token out of vocab")
+        n_gen += f.n_generated
+    return n_gen
+
+
+def _code_bytes(params) -> int:
+    from repro_torch.quant import QTensor
+
+    if isinstance(params, dict):
+        return sum(_code_bytes(v) for v in params.values())
+    return 4 * params.codes.numel() if isinstance(params, QTensor) else 0
+
+
+def serve_bitplane(dev):
+    """Slice 4's main path: full-width gemma-2b, 8-bit bitplane weights
+    written as a weights-bitplane-v1 artifact under build/ and served from
+    the artifact loaded back (kv 8), then at ``set_weight_bits(4)``; the
+    counters are set to 0 just before and read just after each run."""
+    import shutil
+
+    import torch
+    from repro_torch.launch.serve import make_trace, serve_engine
+
+    ship = ROOT / "build" / "ship_gemma2b_bitplane8"
+    runs = {}
+    _bitplane_counters(reset=True)
+    t0 = time.perf_counter()
+    engine, results = serve_engine(
+        "gemma-2b", reduced=False, weight_bits=8, kv_bits=8, weight_layout="bitplane",
+        ship_dir=str(ship), device=dev, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = _bitplane_counters()
+    L = engine.cfg.n_layers
+    artifact_bytes = sum(f.stat().st_size for f in ship.iterdir())
+    shutil.rmtree(ship)
+    full_code_bytes = _code_bytes(engine.params)
+    trace = make_trace(SERVE["n_requests"], engine.cfg.vocab_size, max_new=SERVE["max_new"],
+                       max_prompt=SERVE["max_prompt"], seed=0)
+    st0, n_times = {k: 0 for k in engine.stats}, 0
+    for bits in (8, 4):
+        if bits == 4:       # the same engine, after the 8-bit run's profile
+            engine.set_weight_bits(4)
+            st0, n_times = dict(engine.stats), len(engine.decode_times)
+            _bitplane_counters(reset=True)
+            t0 = time.perf_counter()
+            results = engine.run(trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, shapes = _bitplane_counters()
+        st = engine.stats
+        d = {k: st[k] - st0[k] for k in
+             ("decode_steps", "admitted", "prefill_tokens", "decode_seconds",
+              "steady_decode_tokens")}
+        n_gen = _check_served(engine, results, engine.cfg)
+        want = {"qmm_bitplane": 7 * L * (d["decode_steps"] + d["admitted"]), "qmm": 0,
+                "paged_decode_attn": L * d["decode_steps"]}
+        if launches != want:
+            raise AssertionError(f"[serve-bitplane] {bits}-bit launches {launches}, "
+                                 f"expected {want}")
+        if {key[0] for key in shapes} != {bits + 1}:
+            raise AssertionError(f"[serve-bitplane] planes streamed {shapes}")
+        times = engine.decode_times[n_times:]
+        code_bytes = _code_bytes(engine.params)
+        run = {"weight_bits": bits, "kv_bits": 8, "tokens_generated": n_gen,
+               "decode_steps": d["decode_steps"], "prefill_tokens": d["prefill_tokens"],
+               "decode_tokens_per_s": d["steady_decode_tokens"] / d["decode_seconds"],
+               "mean_decode_step_ms": 1e3 * statistics.mean(times),
+               "weight_bytes": engine.weight_nbytes(), "code_bytes_streamed": code_bytes,
+               "code_bytes_share": code_bytes / full_code_bytes,
+               "kv_pool_bytes": engine.kv_pool_nbytes(), "wall_s": wall,
+               "launches": launches, "shape_launches": [[*k, c] for k, c in shapes.items()],
+               "tokens": {r: f.tokens.tolist() for r, f in results.items()}}
+        if bits == 8:
+            run["artifact_bytes"] = artifact_bytes
+        else:
+            ref8 = runs[8]["tokens"]
+            run["generated_tokens_equal_to_8bit"] = sum(
+                int(a == b) for r, f in results.items()
+                for a, b in zip(f.tokens[f.prompt_len:].tolist(),
+                                ref8[r][f.prompt_len:]))
+        print(f"[serve-bitplane] gemma-2b full width, bitplane weights at {bits} bits "
+              f"(from the weights-bitplane-v1 artifact, {artifact_bytes:,} bytes on disk), "
+              f"kv 8: {len(results)} requests finished, {n_gen} tokens in "
+              f"{d['decode_steps']} decode steps (+{d['prefill_tokens']} prefill tokens); "
+              f"steady-state decode {run['decode_tokens_per_s']:.1f} tok/s "
+              f"({run['mean_decode_step_ms']:.2f} ms/step); weights {run['weight_bytes']:,} "
+              f"bytes, code bytes streamed {code_bytes:,} = {run['code_bytes_share']:.4f} "
+              f"of the artifact's; wall {wall:.1f} s; launches {launches}"
+              + (f"; generated tokens equal to the 8-bit run's at the same position "
+                 f"{run['generated_tokens_equal_to_8bit']}/{n_gen}" if bits == 4 else ""),
+              flush=True)
+        run["profile"] = profile_decode(engine)
+        runs[bits] = run
+    if abs(runs[4]["code_bytes_share"] - 5 / 9) > 1e-3:
+        raise AssertionError(f"4-bit view streams {runs[4]['code_bytes_share']} of the "
+                             "code bytes, expected 5/9")
+    del engine
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _logit_gap(engine, tokens: np.ndarray, pos: int):
+    """Top-2 logit gap of the served weights at ``pos`` of ``tokens``, from
+    a dense prefill of the prefix (no KV quantization: an estimate of how
+    near the tie was)."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import transformer as T
+
+    toks = torch.as_tensor(tokens[:pos], dtype=torch.int64, device=engine.device)[None]
+    with registry.using(engine.backend):
+        logits, _ = T.prefill(engine.params, toks, engine._cfg_fp)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def spec_bitplane(dev, want_tokens, spec=SPEC, profile=True):
+    """Self-speculative decoding on full-width gemma-2b: the same trace with
+    ``spec`` (k 3, draft 4 bits) through ``serve_engine``; its tokens must
+    equal the 8-bit bitplane run's."""
+    import torch
+    from repro_torch.launch.serve import make_trace, serve_engine
+
+    k = spec["spec_decode"]
+    t0 = time.perf_counter()
+    engine, _ = serve_engine("gemma-2b", reduced=False, weight_bits=8, kv_bits=8,
+                             weight_layout="bitplane", device=dev, **spec,
+                             **{**SERVE, "n_requests": 0})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    trace = make_trace(SERVE["n_requests"], engine.cfg.vocab_size, max_new=SERVE["max_new"],
+                       max_prompt=SERVE["max_prompt"], seed=0)
+    _bitplane_counters(reset=True)
+    t0 = time.perf_counter()
+    results, slot_of = _drive(engine, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = _bitplane_counters()
+    st, L = engine.stats, engine.cfg.n_layers
+    n_gen = _check_served(engine, results, engine.cfg)
+    windows, vanilla = st["spec_steps"], st["decode_steps"] - st["spec_steps"]
+    want = {"qmm_bitplane": 7 * L * (st["admitted"] + (k + 1) * windows + vanilla),
+            "qmm": 0, "paged_decode_attn": L * ((k + 1) * windows + vanilla)}
+    if launches != want or windows < 1:
+        raise AssertionError(f"[spec] launches {launches} over {windows} windows, "
+                             f"expected {want}")
+    # the verify window runs every projection at M = slots × (k + 1) under
+    # the 9 planes of the served 8 bits; a prompt of that bucket does too
+    w_m = engine.max_slots * (k + 1)
+    n_pre = sum(engine._bucket(len(r.prompt)) == w_m for r in trace)
+    at_w = sum(c for (p, m, *_), c in shapes.items() if p == 9 and m == w_m)
+    if at_w != 7 * L * (windows + n_pre):
+        raise AssertionError(f"[spec] {at_w} launches at 9 planes, M {w_m}: expected "
+                             f"7 x {L} x ({windows} windows + {n_pre} prefills)")
+    mismatches = []
+    for rid, f in sorted(results.items()):
+        ref = np.asarray(want_tokens[rid])
+        if len(ref) != len(f.tokens) or (ref != f.tokens).any():
+            n = min(len(ref), len(f.tokens))
+            pos = int(np.argmax(ref[:n] != f.tokens[:n])) if (ref[:n] != f.tokens[:n]).any() \
+                else n
+            gap = _logit_gap(engine, ref, pos) if pos < len(ref) else None
+            mismatches.append({"rid": rid, "slot": slot_of.get(rid), "position": pos,
+                               "vanilla": int(ref[pos]) if pos < len(ref) else None,
+                               "spec": int(f.tokens[pos]) if pos < len(f.tokens) else None,
+                               "top2_logit_gap": gap})
+    ms_window = 1e3 * statistics.mean(engine.decode_times)
+    out = {**spec, "windows": windows, "vanilla_steps": vanilla,
+           "acceptance_rate": engine.acceptance_rate(), "tokens_generated": n_gen,
+           "ms_per_window": ms_window,
+           "decode_tokens_per_s": engine.throughput(), "wall_s": wall, "build_s": build_s,
+           "launches": launches, "shape_launches": [[*key, c] for key, c in shapes.items()],
+           "stats": dict(st), "mismatches": mismatches}
+    print(f"[spec] gemma-2b full width, bitplane 8-bit weights, kv 8, spec_decode={k} "
+          f"draft_bits={spec['draft_bits']}: {len(results)} requests, {n_gen} tokens in "
+          f"{windows} windows (+{vanilla} vanilla steps), acceptance "
+          f"{out['acceptance_rate']:.4f}; {ms_window:.2f} ms/window, steady-state "
+          f"{out['decode_tokens_per_s']:.1f} tok/s; launches {launches}; tokens equal to "
+          f"[serve-bitplane] 8-bit on {len(results) - len(mismatches)}/{len(results)} "
+          f"requests", flush=True)
+    if mismatches:
+        raise AssertionError(f"[spec] tokens differ from vanilla decode: {mismatches}")
+    if spec["draft_bits"] == 8 and out["acceptance_rate"] != 1.0:
+        raise AssertionError(f"[spec] a draft at the serving bits was accepted at "
+                             f"{out['acceptance_rate']}, not 1: the verify window and "
+                             "decode compute different logits")
+    if profile:
+        out["profile"] = profile_decode(engine, what="speculative windows")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def agree_bitplane(dev):
+    """Reduced gemma-2b at f32 with 8-bit bitplane weights (kv 8), served
+    plain, at ``set_weight_bits(2)`` and with speculation (k 3, draft 4), on
+    the card (kernels) and on the CPU's plain path: equal greedy tokens."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    plan = PrecisionPlan(model_bits=8, kv_bits=8, model_storage="int")
+    cfg = configs.get_reduced("gemma-2b", dtype=torch.float32, precision=plan)
+    params = quantize_param_tree(T.init_params(cfg, seed=0, device="cpu"), bits=8,
+                                 layout="bitplane")
+    out = {}
+    for name, kw, bits in (("plain", {}, None), ("set_weight_bits(2)", {}, 2),
+                           ("spec 3/4", SPEC, None)):
+        toks, launched = {}, None
+        for where in (dev, "cpu"):
+            eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                              backend="cuda", device=where, **kw)
+            if bits:
+                eng.set_weight_bits(bits)
+            before = _bitplane_counters()[0]["qmm_bitplane"]
+            res = eng.run(make_trace(8, cfg.vocab_size, max_new=16, max_prompt=32, seed=0))
+            if where == dev:
+                launched = _bitplane_counters()[0]["qmm_bitplane"] - before
+            eng.allocator.check_leaks(0)
+            toks[str(where)] = {r: f.tokens.tolist() for r, f in res.items()}
+        same = sum(int(toks[str(dev)][r] == toks["cpu"][r]) for r in toks["cpu"])
+        print(f"[check] reduced gemma-2b f32 bitplane 8-bit {name}: card kernels vs CPU "
+              f"plain path — whole sequences equal {same}/8 (qmm_bitplane launches on the "
+              f"card {launched})", flush=True)
+        if same != 8 or not launched:
+            raise AssertionError(f"[check] bitplane {name}: {same}/8 sequences equal, "
+                                 f"{launched} launches")
+        out[name] = {"sequences_equal": same, "card_launches": launched}
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -1018,6 +1405,7 @@ def main():
     qmv_rows = check_qmv(dev, flush)
     qmm_t_rows = check_qmm_t(dev, flush)
     adamw_rows = check_quant_adamw(dev, flush)
+    qbp_rows = check_qmm_bitplane(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1027,20 +1415,19 @@ def main():
     linear_small = agree_linear(dev)
     training = train_full(dev)
     train_small = agree_train(dev)
+    bitplane = serve_bitplane(dev)
+    spec = spec_bitplane(dev, bitplane[8]["tokens"])
+    spec["control"] = spec_bitplane(dev, bitplane[8]["tokens"], SPEC_CONTROL, profile=False)
+    bitplane_small = agree_bitplane(dev)
 
     kernels = []
     all8 = {name: {tuple(k[:-1]): k[-1] for k in rows} for name, rows in
             training["runs"]["all8"]["shape_launches"].items()}
     for r in qmm_rows:
         packed, m, k, n = r.pop("key")
-        shapes = runs[4 if packed else 8][1]
-        decode = m <= 8
-        if m == TRAIN["batch"] * TRAIN["seq"]:
-            r["launches"] = all8["qmm"].get((packed, m, k, n), 0)
-        else:
-            r["launches"] = sum(c for (p, mm, kk, nn), c in shapes.items()
-                                if p == packed and kk == k and nn == n
-                                and (mm <= 8) == decode)
+        shapes = (all8["qmm"] if m == TRAIN["batch"] * TRAIN["seq"]
+                  else runs[4 if packed else 8][1])
+        r["launches"] = shapes.get((packed, m, k, n), 0)
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
@@ -1076,6 +1463,19 @@ def main():
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/quant_adamw.cu",
                         "replaces": f"src/repro/kernels/quant_adamw.py:{line}", **r})
+    # qmm_bitplane launches on slice 4's path: the wrapper's (P, M, K, N)
+    # counter, reset just before each run, summed over [serve-bitplane] at
+    # 8 and 4 bits and [spec]
+    path = collections.Counter()
+    for shp in (bitplane[8]["shape_launches"], bitplane[4]["shape_launches"],
+                spec["shape_launches"]):
+        for p, m, k, n, c in shp:
+            path[(p, m, k, n)] += c
+    for r in qbp_rows:
+        r["launches"] = path[r.pop("key")]
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm_bitplane.cu",
+                        "replaces": "src/repro/kernels/qmm_bitplane.py:80", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys} for r in kernels]
@@ -1086,7 +1486,9 @@ def main():
               "build_seconds": build_s, "kernels": kernels,
               "serve": [runs[b][2] for b in (8, 4)], "small_agreement": small,
               "linear": linear, "linear_agreement": linear_small,
-              "train": training, "train_agreement": train_small}
+              "train": training, "train_agreement": train_small,
+              "serve_bitplane": bitplane, "spec": spec,
+              "bitplane_agreement": bitplane_small}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

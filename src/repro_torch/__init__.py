@@ -5,13 +5,16 @@ it in PyTorch for one NVIDIA H100, with every TPU kernel on a ported path
 rewritten as a hand-written Hopper kernel (``kernels/csrc``). It never
 imports JAX or ``repro``; only the parity tests load both.
 
-Three slices are ported: serving (``launch/serve.serve_engine``: int
+Four slices are ported: serving (``launch/serve.serve_engine``: int
 weights at rest, a paged quantized KV pool, greedy decode; kernels ``qmm``
 and ``paged_attn``), the paper's linear-model SGD (``core/linear``; kernels
-``ds_quant`` and ``qmv``) and LM training (``launch/train`` →
+``ds_quant`` and ``qmv``), LM training (``launch/train`` →
 ``train.Trainer``: ship-quantized int8 weights, int8 gradients with error
 feedback, int8 AdamW moments; kernels ``qmm``, ``qmm_t`` and
-``quant_adamw``). Parts of ``repro`` outside the slices raise
+``quant_adamw``) and any-precision serving (``serve_engine(weight_layout=
+'bitplane')``: bitplane weights, the ``weights-bitplane-v1`` artifact of
+``ckpt``, ``set_weight_bits``, self-speculative decoding, the precision
+autoscaler; kernel ``qmm_bitplane``). Parts of ``repro`` outside the slices raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Devices: every entry point runs on ``cuda`` unless the caller passes

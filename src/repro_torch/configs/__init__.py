@@ -1,5 +1,5 @@
 """Architecture registry of the port. Slice 1 ports gemma-2b; the other
-nine architectures of ``repro.configs`` wait for ROADMAP A5."""
+nine architectures of ``repro.configs`` wait for ROADMAP A6."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +15,7 @@ _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
 def _module(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP A5); have {ARCH_IDS}")
+            f"architecture {name!r} is not ported yet (ROADMAP A6); have {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

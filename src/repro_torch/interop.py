@@ -4,7 +4,8 @@
 nested dicts of numpy arrays, where a quantized leaf comes as
 ``{"codes": ndarray, "scale": ndarray, "scheme": {QScheme fields}}``, and
 returns the port's tree: tensors and :class:`~repro_torch.quant.QTensor`
-leaves on ``device``. bfloat16 arrays (``ml_dtypes``) arrive as torch
+leaves on ``device`` (a bitplane QTensor's uint32 words arrive as the
+port's int32 words, bit for bit; its ``vec_dim`` rides in the scheme). bfloat16 arrays (``ml_dtypes``) arrive as torch
 bfloat16 exactly (through f32, which holds every bf16 value). Converting a
 JAX ``QTensor`` into that dict form is the caller's job — this package
 never imports JAX.
@@ -39,9 +40,12 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 def params_from_numpy(tree, device="cpu"):
     if isinstance(tree, dict):
         if set(tree) == {"codes", "scale", "scheme"}:
-            return QTensor(tensor_from_numpy(tree["codes"], device),
-                           tensor_from_numpy(tree["scale"], device),
-                           QScheme(**tree["scheme"]))
+            scheme = QScheme(**tree["scheme"])
+            codes = np.asarray(tree["codes"])
+            if scheme.layout == "bitplane":
+                codes = codes.view(np.int32)     # the uint32 words' bits
+            return QTensor(tensor_from_numpy(codes, device),
+                           tensor_from_numpy(tree["scale"], device), scheme)
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
 

@@ -1,6 +1,7 @@
 """Public wrappers around the kernels (port of ``repro.kernels.ops`` for
 ``quant_dense_apply``, ``paged_attention``, ``ds_quantize``,
-``int8_matvec``, ``ds_gradient_from_codes`` and ``quant_adamw_update``).
+``int8_matvec``, ``ds_gradient_from_codes``, ``quant_adamw_update`` and
+``quant_dense_bitplane``).
 
 Unlike the TPU wrappers nothing is padded to 128: the CUDA kernels mask
 ragged edges themselves.
@@ -13,6 +14,7 @@ from repro_torch import prng
 
 from . import paged_attn as pa_mod
 from . import qmm as qmm_mod
+from . import qmm_bitplane as qbp_mod
 from . import qmm_t as qmm_t_mod
 from . import qmv as qmv_mod
 from . import quant_adamw as qa_mod
@@ -33,6 +35,21 @@ def quant_dense_apply(x: torch.Tensor, codes: torch.Tensor,
     kern = qmm_t_mod.qmm_t if transpose else qmm_mod.qmm
     y = kern(x.reshape(-1, x.shape[-1]), codes, scale, packed=packed)
     return y.reshape(*lead, y.shape[-1])
+
+
+def quant_dense_bitplane(x: torch.Tensor, codes: torch.Tensor,
+                         scale: torch.Tensor, n_out: int) -> torch.Tensor:
+    """y = x · decode(bitplane codes) for a 2-D logical weight.
+
+    x: (*lead, K); codes (P, K, ⌈n_out/32⌉) 32-bit words (plane 0 = sign,
+    then magnitude MSB first); scale (1, n_out) f32. Leading x dims fold
+    into the GEMM's M axis; the kernel masks the ragged M, K and the tail
+    word's columns itself, so nothing is padded. Returns (*lead, n_out) f32
+    (``qmm_bitplane``)."""
+    lead = x.shape[:-1]
+    y = qbp_mod.qmm_bitplane(x.reshape(-1, x.shape[-1]), codes,
+                             scale.reshape(1, n_out))
+    return y.reshape(*lead, n_out)
 
 
 def kv_bits_of(pages: torch.Tensor) -> int:

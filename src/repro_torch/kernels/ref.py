@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant.qtensor import unpack_int4
+from repro_torch.quant.qtensor import decode_bitplanes, unpack_int4
 
 
 def qmm_ref(x, codes, scale):
@@ -19,6 +19,15 @@ def qmm_t_ref(g, codes, scale, *, packed: bool = False):
     c = unpack_int4(codes) if packed else codes.to(torch.float32)
     w = c * scale.to(torch.float32).reshape(1, -1)
     return g.to(torch.float32) @ w.t()
+
+
+def qmm_bitplane_ref(x, planes, scale):
+    """The f32-decode oracle of ``qmm_bitplane``: x (M, K) · decode(planes
+    (P, K, ⌈N/32⌉), scale (1, N)) with the weight decoded and multiplied in
+    f32; N is the scale's length, P = k + 1 (sign plane first)."""
+    n = scale.numel()
+    w = decode_bitplanes(planes, scale.to(torch.float32).reshape(1, n), n)
+    return x.to(torch.float32) @ w
 
 
 def adamw_moments_ref(g, m_codes, m_scale, v_codes, v_scale, clip, finite, *,

@@ -10,8 +10,8 @@ Two backends:
   quantized AdamW update decodes, updates and re-encodes each moment with
   its own key.
 * ``cuda`` — the hand-written Hopper kernels (``csrc/qmm.cu``,
-  ``csrc/qmm_t.cu``, ``csrc/paged_attn.cu``, ``csrc/ds_quant.cu``,
-  ``csrc/qmv.cu``, ``csrc/quant_adamw.cu``). Given CUDA
+  ``csrc/qmm_t.cu``, ``csrc/qmm_bitplane.cu``, ``csrc/paged_attn.cu``,
+  ``csrc/ds_quant.cu``, ``csrc/qmv.cu``, ``csrc/quant_adamw.cu``). Given CUDA
   tensors it launches them or raises — it never hands work to a plain
   version; given CPU tensors each kernel wrapper computes its plain version
   (that is how the CPU tests reach it). Its double-sampling pair shares one
@@ -49,15 +49,17 @@ class KernelBackend:
         ``x`` the reference's XLA program keeps the bf16 product
         codes · bf16(scale) in f32 (excess precision: the bf16 rounding
         between the multiply and the f32 dot is dropped), so the port
-        decodes the same way there."""
+        decodes the same way there. A bitplane weight's decode ends in a
+        contraction over its planes, which XLA does not fuse into the dot:
+        it stays bf16 for either ``x``."""
         from repro_torch.quant import QTensor
         from repro_torch.quant.quant_dense import mm_f32
 
         if qt.ndim != 2:
             raise NotImplementedError(
                 "quant_dense takes 2-D weights; slice stacked layers with "
-                "QTensor.index (stacked experts: ROADMAP A5)")
-        if x.dtype == torch.float32:
+                "QTensor.index (stacked experts: ROADMAP A6)")
+        if x.dtype == torch.float32 and qt.scheme.layout == "dense":
             w = QTensor(qt.codes, qt.scale.to(torch.bfloat16), qt.scheme).decode()
         else:
             w = qt.decode(torch.bfloat16)
@@ -154,12 +156,15 @@ class _CudaBackend(KernelBackend):
 
     def quant_dense(self, x, qt, *, transpose: bool = False):
         """Stream the code plane through ``qmm`` (or ``qmm_t`` for x · Wᵀ,
-        the code-domain backward)."""
+        the code-domain backward), bitplane words through
+        ``qmm_bitplane``."""
         sch = qt.scheme
-        if sch.grid != "int" or sch.layout != "dense" or qt.ndim != 2:
+        if sch.layout == "bitplane":
+            return self._quant_dense_bitplane(x, qt, transpose)
+        if sch.grid != "int" or qt.ndim != 2:
             raise NotImplementedError(
-                f"cuda quant_dense takes 2-D dense int-grid weights, got {qt!r} "
-                "(other storages: ROADMAP B5, B11)")
+                f"cuda quant_dense takes 2-D int-grid weights, got {qt!r} "
+                "(the level grid: ROADMAP A2.3; stacked experts: A6)")
         packed = bool(sch.packed)
         if qt.codes.dtype != (torch.uint8 if packed else torch.int8):
             raise NotImplementedError(f"cuda quant_dense: codes of {qt.codes.dtype}")
@@ -174,6 +179,36 @@ class _CudaBackend(KernelBackend):
 
         return ops.quant_dense_apply(x, qt.codes, scale.reshape(1, n), packed=packed,
                                      transpose=transpose)
+
+    @staticmethod
+    def _bitplane_scale(qt):
+        """The (1, N) f32 scale of a 2-D bitplane weight, or None for per-row
+        scales (they do not factor out of the product over K)."""
+        n = qt.scheme.vec_dim
+        scale = qt.scale.to(torch.float32)
+        if scale.numel() == 1:
+            return scale.reshape(1, 1).expand(1, n)
+        if tuple(scale.shape) in ((n,), (1, n)):
+            return scale.reshape(1, n)
+        return None
+
+    def _quant_dense_bitplane(self, x, qt, transpose: bool):
+        """2-D bitplane weights with per-column or scalar scales run
+        ``qmm_bitplane``. Transposed, stacked or per-row-scaled ones have no
+        kernel: on CPU tensors they take the decode path (as the
+        reference's ``pallas`` backend does); on the card they raise rather
+        than hide the missing kernel — no serving layer reaches them."""
+        scale = None if transpose or qt.codes.ndim != 3 else self._bitplane_scale(qt)
+        if scale is None:
+            if qt.codes.is_cuda:
+                raise NotImplementedError(
+                    f"cuda quant_dense of {qt!r} (transpose={transpose}): "
+                    "transposed, stacked or per-row-scaled bitplane weights "
+                    "have no kernel yet (ROADMAP A1)")
+            return KernelBackend.quant_dense(self, x, qt, transpose=transpose)
+        from . import ops
+
+        return ops.quant_dense_bitplane(x, qt.codes, scale, qt.scheme.vec_dim)
 
     def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
                         block_table, seq_lens, *, softmax_scale):

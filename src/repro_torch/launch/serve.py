@@ -13,8 +13,16 @@ with random weights:
       --no-reduced --weight-bits 8 --kv-bits 8 --page-size 16 \
       --max-prompt 128 --max-new 32 --requests 8
 
-Multi-replica serving, speculative decoding, prefix caching, chunked
-prefill, autoscaling and sampling wait for ROADMAP A8/A9.
+Bitplane weights serve any precision from one artifact, and
+self-speculative decoding drafts through their low-bit view (the output is
+token-identical to vanilla decode):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+      --device cpu --weight-bits 8 --kv-bits 8 --weight-layout bitplane \
+      --spec-decode 3 --draft-bits 4
+
+Multi-replica serving, prefix caching, chunked prefill and sampling wait
+for ROADMAP A3.
 """
 from __future__ import annotations
 
@@ -38,12 +46,14 @@ def _resolve_plan(plan, kv_bits, weight_bits) -> PrecisionPlan:
     return plan
 
 
-def _build(arch: str, *, reduced: bool, plan: PrecisionPlan, seed: int, device):
+def _build(arch: str, *, reduced: bool, plan: PrecisionPlan, seed: int, device,
+           weight_layout: str = "dense"):
     get = configs.get_reduced if reduced else configs.get_config
     cfg = get(arch, precision=plan)
     params = T.init_params(cfg, seed=seed, device=device)
     if plan.model_bits:
-        params = quantize_param_tree(params, bits=plan.model_bits)
+        params = quantize_param_tree(params, bits=plan.model_bits,
+                                     layout=weight_layout)
     return cfg, params
 
 
@@ -70,25 +80,60 @@ def serve_engine(arch: str, *, reduced: bool = True, n_requests: int = 16,
                  kv_bits: int = 0, weight_bits: int = 0, seed: int = 0,
                  plan: PrecisionPlan | None = None, max_slots: int = 4,
                  page_size: int = 8, temperature: float = 0.0, top_k: int = 0,
-                 backend: str | None = None, device=None, replicas: int = 1, weight_layout: str = "dense",
-                 prefix_cache: bool = False, chunk_pages: int | None = None,
-                 spec_decode: int = 0, autoscale: bool = False):
+                 backend: str | None = None, device=None, replicas: int = 1,
+                 weight_layout: str = "dense", autoscale: bool = False,
+                 slo_admit_ms: float | None = None, prefix_cache: bool = False,
+                 chunk_pages: int | None = None, spec_decode: int = 0,
+                 draft_bits: int | None = None, ship_dir: str | None = None):
     """Serve a mixed-length trace through one engine on ``device`` (default
     ``cuda``) with random weights from ``seed``. Returns (engine, results
-    dict rid → Finished)."""
-    from repro_torch.serve import ServeEngine
+    dict rid → Finished).
 
-    if replicas != 1 or weight_layout != "dense" or autoscale:
-        raise NotImplementedError("ReplicaSet / bitplane weights / autoscaling "
-                                  "are not in slice 1 (ROADMAP A8, A9)")
+    ``weight_layout='bitplane'`` stores the weights bit-serially (one
+    artifact, any precision); ``autoscale=True`` then attaches a
+    :class:`~repro_torch.serve.PrecisionAutoscaler` (SLO ``slo_admit_ms``,
+    default ``$ZIPML_SLO_ADMIT_MS`` or 50 ms) over the bits ladder 8 → 4 →
+    2 → 1 cut at ``weight_bits``; ``spec_decode=k, draft_bits=b`` turns on
+    self-speculative decoding through the b-bit view; ``ship_dir`` writes
+    the bitplane weights as a ``weights-bitplane-v1`` artifact there and
+    serves from the artifact loaded back. The last three need
+    ``weight_layout='bitplane'`` with ``weight_bits > 0``."""
+    from repro_torch.ckpt import load_ship_weights, save_ship_weights
+    from repro_torch.serve import AutoscalerConfig, PrecisionAutoscaler, ServeEngine
+
+    if replicas != 1:
+        raise NotImplementedError("ReplicaSet (replicas > 1) is not in the port "
+                                  "yet (ROADMAP A3)")
     dev = resolve_device(device)
     plan = _resolve_plan(plan, kv_bits, weight_bits)
-    cfg, params = _build(arch, reduced=reduced, plan=plan, seed=seed, device=dev)
+    bitplane = weight_layout == "bitplane" and plan.model_bits
+    if spec_decode and not bitplane:
+        raise ValueError(
+            "spec_decode needs --weight-layout bitplane with weight_bits > 0 "
+            "(the draft is a slice_planes view of the served artifact)")
+    if ship_dir is not None and not bitplane:
+        raise ValueError("ship_dir needs --weight-layout bitplane with weight_bits > 0")
+    if autoscale and not bitplane:
+        raise ValueError("autoscale needs --weight-layout bitplane with weight_bits > 0")
+    cfg, params = _build(arch, reduced=reduced, plan=plan, seed=seed, device=dev,
+                         weight_layout=weight_layout)
+    if ship_dir is not None:
+        save_ship_weights(ship_dir, params)
+        del params
+        params = load_ship_weights(ship_dir, bits=plan.model_bits, device=dev)
+    autoscaler = None
+    if autoscale:
+        over = {} if slo_admit_ms is None else {"slo_admit_ms": slo_admit_ms}
+        ladder = tuple(b for b in (8, 4, 2, 1) if b <= plan.model_bits)
+        autoscaler = PrecisionAutoscaler(AutoscalerConfig.from_env(bits_ladder=ladder,
+                                                                   **over))
     engine = ServeEngine(params, cfg, plan=plan, max_slots=max_slots,
                          page_size=page_size,
                          max_seq_len=max_prompt + max_new + page_size,
-                         backend=backend, device=dev, prefix_cache=prefix_cache,
-                         chunk_pages=chunk_pages, spec_decode=spec_decode)
+                         backend=backend, device=dev, autoscaler=autoscaler,
+                         prefix_cache=prefix_cache,
+                         chunk_pages=chunk_pages, spec_decode=spec_decode,
+                         draft_bits=draft_bits)
     trace = make_trace(n_requests, cfg.vocab_size, max_new=max_new,
                        min_prompt=min_prompt, max_prompt=max_prompt, seed=seed,
                        temperature=temperature, top_k=top_k)
@@ -103,7 +148,22 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
     ap.add_argument("--kv-bits", type=int, default=0, choices=(0, 4, 8))
-    ap.add_argument("--weight-bits", type=int, default=0, choices=(0, 4, 8))
+    ap.add_argument("--weight-bits", type=int, default=0,
+                    help="0, 4 or 8 (dense layout); 1..8 with --weight-layout bitplane")
+    ap.add_argument("--weight-layout", default="dense", choices=("dense", "bitplane"),
+                    help="bitplane = bit-serial any-precision weight storage")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens per slot through "
+                         "the low-bit weight view, verify in one full-precision "
+                         "step (needs bitplane layout)")
+    ap.add_argument("--draft-bits", type=int, default=None,
+                    help="weight bits of the speculative draft view (below the "
+                         "serving bits)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="adapt weight bits to load (needs bitplane layout)")
+    ap.add_argument("--slo-admit-ms", type=float, default=None,
+                    help="admission-latency SLO for --autoscale "
+                         "(default $ZIPML_SLO_ADMIT_MS or 50)")
     ap.add_argument("--kernel-backend", default=None, choices=(None, "ref", "cuda"))
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -113,13 +173,21 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    allowed = range(1, 9) if args.weight_layout == "bitplane" else (4, 8)
+    if args.weight_bits and args.weight_bits not in allowed:
+        ap.error(f"--weight-bits {args.weight_bits} is not servable with "
+                 f"--weight-layout {args.weight_layout} (allowed: 0, "
+                 f"{', '.join(map(str, allowed))})")
 
     engine, results = serve_engine(
         args.arch, reduced=args.reduced, n_requests=args.requests,
         max_new=args.max_new, min_prompt=args.min_prompt,
         max_prompt=args.max_prompt, kv_bits=args.kv_bits,
         weight_bits=args.weight_bits, seed=args.seed, max_slots=args.max_slots,
-        page_size=args.page_size, backend=args.kernel_backend, device=args.device)
+        page_size=args.page_size, backend=args.kernel_backend, device=args.device,
+        weight_layout=args.weight_layout, autoscale=args.autoscale,
+        slo_admit_ms=args.slo_admit_ms, spec_decode=args.spec_decode,
+        draft_bits=args.draft_bits)
     st = engine.stats
     gen_total = sum(f.n_generated for f in results.values())
     print(f"[serve-engine] {len(results)} requests, {gen_total} tokens "
@@ -129,6 +197,18 @@ def main(argv=None):
     print(f"[serve-engine] KV pool: {engine.kv_pool_nbytes():,} bytes "
           f"(kv_bits={args.kv_bits or 'bf16'}, page_size={args.page_size}) "
           f"via QTensor.nbytes")
+    print(f"[serve-engine] weights: {engine.weight_nbytes():,} bytes "
+          f"(layout={args.weight_layout}, served bits "
+          f"{engine.weight_bits or args.weight_bits or 'bf16'})")
+    if args.spec_decode:
+        print(f"[serve-engine] speculative: {st['spec_steps']} windows, acceptance "
+              f"{engine.acceptance_rate():.2f} (k={args.spec_decode}, "
+              f"draft_bits={args.draft_bits})")
+    if engine.autoscaler is not None:
+        asc = engine.autoscaler
+        print(f"[serve-engine] autoscaler: bits={asc.bits} after "
+              f"{asc.n_observations} observations, {asc.n_moves} moves "
+              f"(slo_admit_ms={asc.config.slo_admit_ms})")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 attention over query blocks, the single-token decode projections, and the
 masked one-shot decode softmax of the ``ref`` backend.
 
-Sliding windows and cross-attention wait for ROADMAP A5.
+Sliding windows and cross-attention wait for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def chunked_attention(q, k, v, spec: AttnSpec) -> torch.Tensor:
     """Causal attention over query blocks of ``spec.q_chunk`` rows.
     q: (B, S, H, D); k/v: (B, S, Hkv, D), post-RoPE. Returns (B, S, H, D)."""
     if spec.window:
-        raise NotImplementedError("sliding-window attention (ROADMAP A5)")
+        raise NotImplementedError("sliding-window attention (ROADMAP A6)")
     s = q.shape[1]
     cq = min(spec.q_chunk, s)
     k_pos = torch.arange(k.shape[1], device=q.device)

@@ -7,7 +7,7 @@ decode block.
 of the same stacked tensors; the training forward rematerializes each layer
 in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
 reference's ``jax.checkpoint`` does. MoE, SSM, hybrid and VLM families wait
-for ROADMAP A5.
+for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def _check_dense(cfg: ModelConfig):
     if cfg.family != "dense" or cfg.window or cfg.qkv_bias or not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: only the dense family with tied embeddings, no "
-            "window and no qkv bias is ported (ROADMAP A5)")
+            "window and no qkv bias is ported (ROADMAP A6)")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
@@ -125,7 +125,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     _check_dense(cfg)
     if cfg.precision.act_bits:
         raise NotImplementedError(
-            "the activation channel (act_bits) needs qmm_qout (ROADMAP B7)")
+            "act_bits: the reference does not wire act_bits into its model "
+            "(a plan with it trains as one without it); the port raises "
+            "rather than ignore a requested channel (ROADMAP C9, A5)")
     x = embed(params["embed"], tokens).to(cfg.dtype)
     for layer in unstack_layers(params["layers"], cfg.n_layers):
         if cfg.remat:
@@ -169,7 +171,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.precision.kv_bits:
         raise NotImplementedError(
             "prefill fills raw K/V only (kv_bits=0); the paged pool "
-            "quantizes them (ring-cache prefill: ROADMAP A5)")
+            "quantizes them (ring-cache prefill: ROADMAP A6)")
     layers = layers if layers is not None else layer_views(params, cfg)
     x = embed(params["embed"], tokens).to(cfg.dtype)
     ks, vs = [], []

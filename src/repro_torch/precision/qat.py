@@ -13,8 +13,10 @@
 * :func:`fake_quant_tree` — QAT fake quantization: the forward sees the
   stochastically rounded weight, the gradient passes straight through.
 
-Level tables (``optimal``), the bitplane layout and ``include_embedding``
-wait for ROADMAP A2.3/B11.
+``quantize_param_tree(..., layout='bitplane')`` stores each matmul weight
+bit-serially (:meth:`~repro_torch.quant.QScheme.bitplane`): one artifact
+serves any precision 1..bits through ``QTensor.slice_planes``. Level tables
+(``optimal``) and ``include_embedding`` wait for ROADMAP A2.3 and A5.
 """
 from __future__ import annotations
 
@@ -59,13 +61,36 @@ def quantize_param_tree(params, bits: int = 8, optimal: bool = False,
                         include_embedding: bool = False,
                         layout: str = "dense"):
     """Convert every matmul weight of a nested-dict param tree to QTensor
-    storage (codes and scales byte-identical to the reference)."""
-    if optimal or include_embedding or layout != "dense":
+    storage (codes and scales byte-identical to the reference).
+
+    ``layout='bitplane'`` stores each weight bit-serially; it excludes
+    ``optimal=`` and ``packed=``. A stacked (L, K, N) weight is encoded one
+    layer at a time, which bounds the encode's temporaries (several f32 and
+    int copies of the leaf) by one layer's — a few GB less per full-width
+    MLP weight — and gives the whole-leaf codes, since the channel scales
+    reduce within a layer."""
+    if layout not in ("dense", "bitplane"):
+        raise ValueError(f"layout must be 'dense' or 'bitplane', got {layout!r}")
+    if layout == "bitplane" and (optimal or packed):
+        raise ValueError("layout='bitplane' excludes optimal= and packed=")
+    if optimal or include_embedding:
         raise NotImplementedError(
-            "optimal levels / quantized embeddings / bitplane layout are not "
-            "ported (ROADMAP A2.3, B11)")
+            "optimal levels / quantized embeddings are not ported "
+            "(ROADMAP A2.3, A5)")
+    if layout == "bitplane":
+        return _map_weights(params, lambda w: _encode_by_layer(w, QScheme.bitplane(bits)))
     return _map_weights(params, lambda w: encode(
         w, _weight_scheme(bits, packed=_auto_packed(bits, w, packed))))
+
+
+def _encode_by_layer(w: torch.Tensor, scheme: QScheme) -> QTensor:
+    """``encode(w, scheme)`` of a 2-D weight, or of a stacked (L, K, N) one
+    layer by layer with the per-layer codes and scales stacked."""
+    if w.ndim == 2:
+        return encode(w, scheme)
+    parts = [encode(wi, scheme) for wi in w.unbind(0)]
+    return QTensor(torch.stack([q.codes for q in parts]),
+                   torch.stack([q.scale for q in parts]), parts[0].scheme)
 
 
 class _STE(torch.autograd.Function):

@@ -15,15 +15,27 @@ sign(x) · round(clip(|x|/scale, 0, 1) · s) with stochastic rounding
 A double-sampled pair (``rounding='ds'``) carries its second plane in
 ``codes2``.
 
+The bitplane layout (``QScheme.bitplane``) stores a sign plane and
+``bits`` magnitude planes, MSB first, 32 elements per word: bit ``j`` of
+word ``w`` is element ``32·w + j``, the tail word zero-padded. The magnitude
+is truncated (⌊|x|·2^B/scale⌋, scale = absmax), so the top-k planes decode
+to exactly the direct k-bit encoding (:meth:`QTensor.slice_planes`). The
+words are the reference's ``uint32`` words held as ``int32`` (the same 32
+bits): torch on the CPU cannot shift ``uint32`` (ROADMAP C3), while an
+arithmetic shift of an ``int32`` followed by ``& 1`` reads every bit, bit
+31 included.
+
 Stacked layer weights keep their leading layer axis — codes (L, K, N) with
-(L, 1, N) channel scales — and :meth:`QTensor.index` hands out the per-layer
-2-D view without copying.
+(L, 1, N) channel scales, bitplane codes (L, P, K, W) — and
+:meth:`QTensor.index` hands out the per-layer view without copying.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import prng
 
@@ -67,6 +79,72 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
         *packed.shape[:-1], packed.shape[-1] * 2)
 
 
+# bit j of a packed word as an int32: 1 << j, and -2^31 for bit 31 (the
+# same 32 bits as the reference's uint32 word)
+_BIT_WEIGHTS = [1 << j for j in range(31)] + [-(1 << 31)]
+
+
+def pack_bitplanes(planes: torch.Tensor) -> torch.Tensor:
+    """0/1 planes ``(…, D)`` → int32 words ``(…, ⌈D/32⌉)``: bit ``j`` of
+    word ``w`` holds element ``32·w + j``, the tail word zero-padded — the
+    reference's uint32 words, bit for bit."""
+    d = planes.shape[-1]
+    b = planes.to(torch.int32)
+    pad = (-d) % 32
+    if pad:
+        b = F.pad(b, (0, pad))
+    b = b.reshape(*b.shape[:-1], -1, 32)
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=b.device)
+    # distinct bits: the int64 sum stays inside int32 in any order
+    return (b * w).sum(dim=-1).to(torch.int32)
+
+
+def unpack_bitplanes(words: torch.Tensor, d: int) -> torch.Tensor:
+    """int32 (or uint32) words ``(…, ⌈d/32⌉)`` → int32 0/1 planes ``(…, d)``
+    (inverse of :func:`pack_bitplanes`)."""
+    if words.dtype == torch.uint32:
+        words = words.view(torch.int32)
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], words.shape[-1] * 32)[..., :d]
+
+
+def decode_bitplanes(words: torch.Tensor, scale: torch.Tensor, d: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Bitplane words ``(*lead, P, R, ⌈d/32⌉)`` → values ``(*lead, R, d)`` in
+    ``dtype``: sign · mag · scale · 2^−k with k = P − 1 read off the plane
+    axis, so one decode serves every ``slice_planes(k)`` view (the
+    reference's operation order; the integer magnitude is exact)."""
+    k = words.shape[-3] - 1
+    bits = unpack_bitplanes(words, d).movedim(-3, 0)
+    mag = torch.zeros_like(bits[0])
+    for p in range(k):
+        mag = mag * 2 + bits[1 + p]
+    sign = 1.0 - 2.0 * bits[0].to(dtype)
+    return sign * mag.to(dtype) * scale.to(dtype) * (2.0 ** -k)
+
+
+def _encode_bitplane(x: torch.Tensor, scheme: QScheme,
+                     scale: torch.Tensor) -> "QTensor":
+    """Bit-serial encode: codes ``(*lead, B+1, R, ⌈D/32⌉)`` for x
+    ``(*lead, R, D)`` — the plane axis at −3, as in the reference. The
+    magnitude is truncated, ⌊|x|/scale · 2^B⌋ clipped to 2^B − 1, so the
+    top-k planes are the direct k-bit encoding. Planes are packed one at a
+    time (a stacked whole-plane int expansion of a large weight would not
+    fit)."""
+    if x.ndim < 2:
+        raise ValueError(
+            f"bitplane layout packs matrices (ndim >= 2), got {tuple(x.shape)}")
+    b = scheme.bits
+    x32 = x.to(torch.float32)
+    mag = torch.clamp(torch.floor(x32.abs() / scale * (2.0 ** b)), 0.0,
+                      float(2 ** b - 1)).to(torch.int32)
+    planes = [pack_bitplanes(x32 < 0)]
+    planes += [pack_bitplanes((mag >> (b - 1 - p)) & 1) for p in range(b)]
+    scheme = dataclasses.replace(scheme, vec_dim=int(x.shape[-1]))
+    return QTensor(torch.stack(planes, dim=-3), scale, scheme)
+
+
 def _absmax(x32: torch.Tensor, scheme: QScheme) -> torch.Tensor:
     """max|x| per scaling group, shaped as the reference's scales: a 0-d
     tensor ('tensor'), (…, 1) ('row'), (C,) ('column'), keepdim over
@@ -83,12 +161,16 @@ def _absmax(x32: torch.Tensor, scheme: QScheme) -> torch.Tensor:
 
 def compute_scale(x: torch.Tensor, scheme: QScheme) -> torch.Tensor:
     """The decode multiplier of ``x`` under ``scheme``'s scaling family:
-    absmax/qmax on the int grid, absmax itself on the zipml grid, with an
+    absmax/qmax on the int grid, absmax itself on the zipml grid and the
+    bitplane layout, with an
     all-zero group mapped to scale 1 (so its decode is exact)."""
-    if scheme.grid == "levels" or scheme.layout != "dense":
-        _todo(f"grid {scheme.grid!r} / layout {scheme.layout!r}",
-              "A1 (bitplanes), A2.3 (level grid)")
+    if scheme.grid == "levels":
+        _todo("grid 'levels'", "A2.3")
     m = _absmax(x.detach().to(torch.float32), scheme)
+    if scheme.grid == "int" and scheme.layout == "bitplane":
+        # magnitudes live on [0, 1): the scale is the absmax itself, the
+        # same for every plane slice
+        return torch.where(m == 0, torch.ones_like(m), m)
     if scheme.grid == "int":
         return torch.where(m == 0, torch.ones_like(m), m / float(scheme.qmax))
     return torch.where(m == 0, torch.ones_like(m), m)
@@ -111,11 +193,16 @@ class QTensor:
 
     @property
     def shape(self):
-        return tuple(self.codes.shape)
+        """Logical shape: bitplane codes (*lead, P, R, W) report the decoded
+        (*lead, R, vec_dim)."""
+        s = tuple(self.codes.shape)
+        if self.scheme.layout == "bitplane":
+            return (*s[:-3], s[-2], self.scheme.vec_dim)
+        return s
 
     @property
     def ndim(self) -> int:
-        return self.codes.ndim
+        return len(self.shape)
 
     @property
     def is_ds(self) -> bool:
@@ -129,7 +216,10 @@ class QTensor:
     @property
     def nbytes(self) -> int:
         """Logical HBM bytes: packed codes + f32 scales (the reference's
-        ``QTensor.nbytes`` accounting)."""
+        ``QTensor.nbytes`` accounting). Bitplane codes count their 32-bit
+        words, so a ``slice_planes(k)`` view costs bytes linear in k + 1."""
+        if self.scheme.layout == "bitplane":
+            return 4 * math.prod(self.codes.shape) + 4 * math.prod(self.scale.shape)
         n = math.prod(self.codes.shape)
         if self.scheme.packed:
             n *= 2                               # two logical codes per byte
@@ -137,10 +227,11 @@ class QTensor:
 
     def _decode_plane(self, codes, dtype=None) -> torch.Tensor:
         sch = self.scheme
-        if sch.grid == "levels" or sch.layout != "dense":
-            _todo(f"decode of grid {sch.grid!r} / layout {sch.layout!r}",
-                  "A1 (bitplanes), A2.3 (level grid)")
+        if sch.grid == "levels":
+            _todo("decode of grid 'levels'", "A2.3")
         ct = torch.float32 if dtype is None else dtype
+        if sch.layout == "bitplane":
+            return decode_bitplanes(codes, self.scale, sch.vec_dim, ct)
         if sch.grid == "zipml":
             return codes.to(ct) / sch.s * self.scale.to(ct)
         codes = unpack_int4(codes) if sch.packed else codes
@@ -159,6 +250,20 @@ class QTensor:
 
     def dequantize(self) -> torch.Tensor:
         return self.decode()
+
+    def slice_planes(self, k: int) -> "QTensor":
+        """Top-k-bit view of a bitplane QTensor: the sign plane + the k most
+        significant magnitude planes — a slice, no repacking — whose decode
+        equals encoding the original tensor directly at k bits."""
+        if self.scheme.layout != "bitplane":
+            raise ValueError("slice_planes needs layout='bitplane', got "
+                             f"{self.scheme.layout!r}")
+        if not 1 <= k <= self.scheme.bits:
+            raise ValueError(f"k must be in 1..{self.scheme.bits}, got {k}")
+        if k == self.scheme.bits:
+            return self
+        return QTensor(self.codes[..., :k + 1, :, :], self.scale,
+                       dataclasses.replace(self.scheme, bits=k))
 
     def dot(self, v: torch.Tensor, backend=None) -> torch.Tensor:
         """decode(self) @ v through the kernel-backend registry (the ``cuda``
@@ -186,7 +291,8 @@ def encode(x: torch.Tensor, scheme: QScheme, key: torch.Tensor | None = None,
     numerics). Both grids take stochastic rounding (``key`` required; the
     uniform draw is ``jax.random.uniform(key, x.shape)``-exact) or nearest:
     the int grid gives int8 codes (packed uint8 nibbles at ``packed=True``),
-    the zipml grid codes on s intervals; ``rounding='ds'`` draws the §2.2
+    the zipml grid codes on s intervals, the bitplane layout its packed
+    sign and magnitude planes; ``rounding='ds'`` draws the §2.2
     pair through :func:`ds_pair`. ``scale=None`` computes the scheme's own
     scale."""
     if scheme.rounding == "ds":
@@ -197,6 +303,8 @@ def encode(x: torch.Tensor, scheme: QScheme, key: torch.Tensor | None = None,
         scale = compute_scale(x, scheme)
     else:
         scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    if scheme.layout == "bitplane":
+        return _encode_bitplane(x, scheme, scale)
     if scheme.grid == "zipml":
         return _encode_zipml(x, scheme, scale,
                              None if scheme.rounding == "nearest" else key)
@@ -210,8 +318,6 @@ def encode(x: torch.Tensor, scheme: QScheme, key: torch.Tensor | None = None,
 
 
 def _encode_zipml(x, scheme: QScheme, scale, key) -> QTensor:
-    if scheme.layout != "dense":
-        _todo(f"layout {scheme.layout!r}", "A1")
     s = scheme.s
     xn = (x / scale).to(torch.float32)
     mag = torch.clamp(xn.abs() if scheme.signed else xn, 0.0, 1.0)

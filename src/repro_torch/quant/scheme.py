@@ -5,9 +5,11 @@ The dataclass carries every field of the reference so a scheme crosses the
 numpy bridge unchanged (``QScheme(**fields)``). The port encodes and
 decodes the symmetric int grid (``grid='int'``, nibble-packed int4) and the
 paper's interval grid (``grid='zipml'``), each with stochastic, nearest and
-double-sampled rounding, under tensor, row, column and channel scaling; the
-level grid and the bitplane layout raise in ``qtensor`` until the ROADMAP
-items that port them.
+double-sampled rounding, under tensor, row, column and channel scaling, and
+the bitplane layout (``layout='bitplane'``: a sign plane + ``bits``
+magnitude planes, MSB first, 32 elements per 32-bit word — one artifact
+serves every precision 1..bits through ``QTensor.slice_planes``); the level
+grid raises in ``qtensor`` until ROADMAP A2.3 ports it.
 """
 from __future__ import annotations
 
@@ -43,6 +45,17 @@ class QScheme:
             raise ValueError("packed storage is the signed 4-bit int grid only")
         if self.layout not in LAYOUTS:
             raise ValueError(f"unknown layout {self.layout!r}; have {LAYOUTS}")
+        if self.layout == "bitplane":
+            if self.grid != "int" or not self.signed or self.packed:
+                raise ValueError(
+                    "bitplane layout is the signed int grid only (unpacked)")
+            if not 1 <= self.bits <= 8:
+                raise ValueError(
+                    f"bitplane layout serves 1..8 bits, got {self.bits}")
+            if self.rounding != "nearest":
+                # magnitudes are truncated so plane slices nest; stochastic
+                # and ds rounding cannot nest
+                raise ValueError("bitplane layout requires rounding='nearest'")
         if self.grid == "zipml" and self.s == 0:
             object.__setattr__(self, "s", 2 ** self.bits - 1)
 
@@ -53,7 +66,8 @@ class QScheme:
 
     @property
     def code_bits(self) -> int:
-        """Storage width of one code in bits."""
+        """Storage width of one code in bits; a bitplane code pays +1 for
+        the sign plane."""
         if self.grid == "zipml":
             return max(int(self.s).bit_length(), 1)
         if self.layout == "bitplane":
@@ -79,3 +93,13 @@ class QScheme:
         uint8 byte — same values, half the storage bytes."""
         return cls(bits=int(bits), grid="int", scaling=scaling,
                    rounding=rounding, channel_axis=channel_axis, packed=packed)
+
+    @classmethod
+    def bitplane(cls, bits: int = 8, *, scaling: str = "channel",
+                 channel_axis: int = -2) -> "QScheme":
+        """MLWeaving bit-serial storage: sign plane + ``bits`` magnitude
+        planes (MSB first), 32 elements per 32-bit word. One artifact serves
+        any precision 1..bits via ``QTensor.slice_planes(k)``."""
+        return cls(bits=int(bits), grid="int", scaling=scaling,
+                   rounding="nearest", channel_axis=channel_axis,
+                   layout="bitplane")

@@ -7,8 +7,8 @@ per-(token, head) f32 scales (L, P, page, Hkv, 1) from the row-symmetric
 nearest scheme. Page 0 is the null page: never allocated, the write target
 of inactive slots.
 
-Unlike the reference's functional updates, :func:`write_prompt` and
-:func:`append_rows` write into the pool **in place** — a decode step would
+Unlike the reference's functional updates, :func:`write_prompt`,
+:func:`append_rows` and :func:`write_rows` write into the pool **in place** — a decode step would
 otherwise copy every layer's page planes.
 """
 from __future__ import annotations
@@ -127,6 +127,19 @@ def append_rows(k_pages, v_pages, k_scale, v_scale, k_new, v_new,
         v_scale[ids, offs] = vs
 
 
+def write_rows(k_pages, v_pages, k_scale, v_scale, k_new, v_new,
+               page_ids, offsets) -> None:
+    """Scatter a window of KV rows per slot into ONE layer's page planes, in
+    place — the W-wide :func:`append_rows` of the speculative verify window.
+    k/v_new: (B, W, Hkv, D) pre-quantization; page_ids/offsets (B, W) — rows
+    of inactive slots target the null page 0. The rows are quantized per
+    (token, head) like single-row appends, so a row's codes are the same
+    whether decode or a verify window wrote it."""
+    append_rows(k_pages, v_pages, k_scale, v_scale,
+                k_new.flatten(0, 1), v_new.flatten(0, 1),
+                page_ids.reshape(-1), offsets.reshape(-1))
+
+
 def pool_nbytes(pool: PagedKVPool) -> int:
     """Logical KV HBM bytes of the pool with the reference's QTensor.nbytes
     accounting (unquantized pools count 16-bit codes and no scale plane)."""
@@ -197,5 +210,5 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
 
 
 __all__ = ["PagedKVPool", "PageAllocator", "init_pool", "write_prompt",
-           "append_rows", "quant_rows", "pool_nbytes", "kv_scheme",
+           "append_rows", "write_rows", "quant_rows", "pool_nbytes", "kv_scheme",
            "pages_needed"]

@@ -11,8 +11,8 @@
   inside the loss;
 * grad   — stochastic int quantization with the error-feedback residual
   ``{'ef': f32 tree}`` carried in the channel state;
-* act    — quantized activations need the fused ``qmm_qout`` epilogue,
-  which is not ported: a plan with ``act_bits`` raises (ROADMAP B7).
+* act    — the reference's model never reads ``act_bits`` (its channel
+  does nothing); the port raises on a plan with it (ROADMAP C9, A5).
 """
 from __future__ import annotations
 
@@ -123,16 +123,18 @@ class GradChannel(Channel):
 
 
 class ActChannel(Channel):
-    """Q_a — double-sampled activation quantization inside the model; it
-    needs the fused quantize epilogue ``qmm_qout``, not ported yet."""
+    """Q_a — the activation channel. The reference's ``ActChannel`` does
+    nothing and its model never reads ``act_bits``; the port raises on it
+    instead of silently ignoring a requested channel."""
 
     name = "act"
 
     def __init__(self, plan: PrecisionPlan):
         if plan.act_bits:
             raise NotImplementedError(
-                "the activation channel (act_bits) needs the qmm_qout kernel "
-                "(ROADMAP B7)")
+                "act_bits: the reference does not wire act_bits into its model "
+                "(a plan with it trains as one without it); the port raises "
+                "rather than ignore a requested channel (ROADMAP C9, A5)")
         super().__init__(plan)
 
 

@@ -13,7 +13,10 @@ and the CPU's plain path (same keys, same codes; sums in another order);
 ``qmm_t`` rel 1e-5 of the largest output; ``quant_adamw`` the reference's
 contract (masters rtol 2e-6 / atol 2e-6, scales rtol 1e-6, ≥ 99.9 % of
 codes equal, off by at most one level); the reduced training step on the
-card against the CPU's plain path: losses rtol 1e-4.
+card against the CPU's plain path: losses rtol 1e-4; ``qmm_bitplane`` rel
+1e-5 of the largest output, and bit-equal rows at every M; the reduced
+bitplane engines (plain, sliced, speculative) on the card against the CPU's
+plain path: greedy tokens equal.
 """
 import numpy as np
 import pytest
@@ -283,3 +286,108 @@ def test_train_step_card_matches_cpu_plain_path(cuda):
             (tqmm.launches, tqmm_t.launches, tqa.absmax_launches), before)]
         assert all(launched) if where == cuda else not any(launched)
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)
+
+
+# qmm_bitplane at the serving path's (M, K, N): decode (M 4), the verify
+# window (M 16) and prefill (M 128) of gemma-2b's q/o, k/v, gate/up and down
+# projections, plus ragged M, K and N
+QBP_SHAPES = [(4, 2048, 2048), (16, 2048, 256), (4, 2048, 16384), (4, 16384, 2048),
+              (128, 2048, 2048), (13, 1001, 1000), (1, 40, 24), (5, 64, 70)]
+_QBP_WEIGHTS = {}
+
+
+def _bitplane_weights(k, n, device):
+    """The 8-bit bitplane encoding of a seeded (K, N) weight, made on the
+    card once per shape."""
+    if (k, n) not in _QBP_WEIGHTS:
+        g = torch.Generator(device=device).manual_seed(k * 7 + n)
+        w = torch.randn(k, n, generator=g, device=device) * k ** -0.5
+        _QBP_WEIGHTS[(k, n)] = tquant.encode(w, tquant.QScheme.bitplane(8))
+    return _QBP_WEIGHTS[(k, n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QBP_SHAPES)
+@pytest.mark.parametrize("planes", range(1, 10))
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_qmm_bitplane_kernel_matches_plain(cuda, m, k, n, planes, xdtype):
+    """rel 1e-5 of the largest output against the f32-decode plain version
+    (integer codes summed exactly per product, f32 accumulation order)."""
+    from repro_torch.kernels import qmm_bitplane as tqbp
+
+    qt = _bitplane_weights(k, n, cuda)
+    codes = qt.codes[:planes]
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(xdtype).to(cuda)
+    before = tqbp.launches
+    got = tqbp.qmm_bitplane(x, codes, qt.scale)
+    torch.cuda.synchronize()
+    assert tqbp.launches == before + 1 and got.shape == (m, n)
+    want = tqbp.qmm_bitplane_plain(x, codes, qt.scale)
+    if planes == 1:
+        assert not got.any()
+        return
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (16384, 2048), (1001, 1000)])
+def test_qmm_bitplane_rows_do_not_depend_on_m(cuda, k, n):
+    """The K split depends on (K, N) only and each row is summed alone, so
+    a row of x gives the same bits at M = 4 (a decode step), 16 (a verify
+    window) and 128 (prefill)."""
+    from repro_torch.kernels import qmm_bitplane as tqbp
+
+    qt = _bitplane_weights(k, n, cuda)
+    x = torch.randn(128, k, generator=torch.Generator().manual_seed(1)).to(
+        torch.bfloat16).to(cuda)
+    full = tqbp.qmm_bitplane(x, qt.codes, qt.scale)
+    for m in (4, 16):
+        for start in (0, 4, 64):
+            part = tqbp.qmm_bitplane(x[start:start + m], qt.codes, qt.scale)
+            assert torch.equal(part, full[start:start + m]), (m, start)
+
+
+@pytest.mark.gpu
+def test_bitplane_quant_dense_without_kernel_raises_on_card(cuda):
+    from repro_torch.kernels import registry as treg
+
+    be = treg.get("cuda")
+    qt = _bitplane_weights(40, 24, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        be.quant_dense(torch.randn(3, 24, device=cuda), qt, transpose=True)
+    w = torch.randn(2, 40, 24, device=cuda)
+    stacked = tquant.encode(w, tquant.QScheme.bitplane(4))
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        be.quant_dense(torch.randn(3, 40, device=cuda), stacked)
+    y = be.quant_dense(torch.randn(2, 3, 40, device=cuda), qt)
+    assert y.shape == (2, 3, 24)
+
+
+@pytest.mark.gpu
+def test_bitplane_engines_card_match_cpu_plain_path(cuda):
+    """Reduced gemma-2b at f32 with 8-bit bitplane weights, served plain,
+    at set_weight_bits(2) and with speculation (k 3, draft 4): greedy tokens
+    on the card (kernels) equal the CPU's (plain versions)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    plan = PrecisionPlan(model_bits=8, kv_bits=8, model_storage="int")
+    cfg = configs.get_reduced("gemma-2b", dtype=torch.float32, precision=plan)
+    params = quantize_param_tree(T.init_params(cfg, seed=0, device="cpu"), bits=8,
+                                 layout="bitplane")
+    for name, kw, bits in (("plain", {}, None), ("sliced", {}, 2),
+                           ("spec", dict(spec_decode=3, draft_bits=4), None)):
+        toks = {}
+        for where in (cuda, "cpu"):
+            eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                              backend="cuda", device=where, **kw)
+            if bits:
+                eng.set_weight_bits(bits)
+            res = eng.run(make_trace(8, cfg.vocab_size, max_new=16, max_prompt=32, seed=0))
+            toks[str(where)] = {r: f.tokens.tolist() for r, f in res.items()}
+            eng.allocator.check_leaks(0)
+        assert toks[str(cuda)] == toks["cpu"], name

@@ -63,11 +63,15 @@ def test_cuda_without_a_card_raises():
         ServeEngine({}, tconfigs.get_reduced("gemma-2b"))
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache=True), dict(chunk_pages=2),
-                                dict(spec_decode=2, draft_bits=4),
-                                dict(reserve="none")])
-def test_unported_engine_features_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(prefix_cache=True), NotImplementedError, "ROADMAP A3"),
+    (dict(chunk_pages=2), NotImplementedError, "ROADMAP A3"),
+    # speculation is ported: on weights without bitplanes it raises the
+    # reference's ValueError
+    (dict(spec_decode=2, draft_bits=4), ValueError, "bitplane"),
+    (dict(reserve="none"), NotImplementedError, "ROADMAP A3")])
+def test_unported_engine_features_raise(kw, err, match):
+    with pytest.raises(err, match=match):
         ServeEngine({}, tconfigs.get_reduced("gemma-2b"), device="cpu", **kw)
 
 

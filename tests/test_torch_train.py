@@ -454,7 +454,7 @@ def test_fault_injection_and_act_channel_name_the_roadmap():
     tr = tlaunch.make_trainer("gemma-2b", batch=2, seq=16, steps=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         tr.run(2, fail_at=1)
-    with pytest.raises(NotImplementedError, match="qmm_qout.*B7"):
+    with pytest.raises(NotImplementedError, match="does not wire act_bits.*ROADMAP C9"):
         tch.ActChannel(TPlan(act_bits=8))
 
 
