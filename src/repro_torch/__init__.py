@@ -5,10 +5,15 @@ it in PyTorch for one NVIDIA H100, with every TPU kernel on a ported path
 rewritten as a hand-written Hopper kernel (``kernels/csrc``). It never
 imports JAX or ``repro``; only the parity tests load both.
 
-Four slices are ported: serving (``launch/serve.serve_engine``: int
-weights at rest, a paged quantized KV pool, greedy decode; kernels ``qmm``
-and ``paged_attn``), the paper's linear-model SGD (``core/linear``; kernels
-``ds_quant`` and ``qmv``), LM training (``launch/train`` →
+Five slices are ported: serving (``launch/serve.serve_engine``: int
+weights at rest — or variance-optimal level tables, ``optimal_levels`` —
+a paged quantized KV pool, greedy decode; kernels ``qmm`` and
+``paged_attn``), the paper's linear-model SGD (``core/linear``: linear
+regression and LS-SVM, kernels ``ds_quant`` and ``qmv``; the §4 Chebyshev
+logistic regression and SVM with ℓ1 refetching and the §3 optimal sample
+levels of ``core/chebyshev`` and ``core/optimal``), the row-scaled
+quantizer entry points (``kernels/ops.quantize_rows``, ``ds_quantize``;
+kernels ``row_absmax`` and ``stoch_quant``), LM training (``launch/train`` →
 ``train.Trainer``: ship-quantized int8 weights, int8 gradients with error
 feedback, int8 AdamW moments; kernels ``qmm``, ``qmm_t`` and
 ``quant_adamw``) and any-precision serving (``serve_engine(weight_layout=

@@ -78,3 +78,34 @@ def lsq_gradient_e2e(x, a, b, cfg: DSConfig, key, sample_scale=None,
         g = stochastic_quantize(g, cfg.s_grad, k_g, scale=row_scale(g))
     return g
 
+
+
+def poly_estimate(coeffs: torch.Tensor, a: torch.Tensor, x: torch.Tensor, s: int,
+                  u: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`polynomial_estimator` from its d uniform planes ``u`` (d, B, n):
+    all d quantizations in one pass, the running products Πⱼ≤ᵢ Qⱼ(a)ᵀx and
+    the sum m₀ + Σ mᵢ·prodᵢ accumulated in the reference's order (a
+    cumulative product and sum along the monomial axis)."""
+    d = coeffs.shape[0] - 1
+    B = a.shape[0]
+    c = coeffs.to(device=a.device, dtype=torch.float32)
+    if d == 0:
+        return torch.full((B,), float(c[0]), dtype=torch.float32, device=a.device)
+    qa = stochastic_quantize(a.expand(d, *a.shape), s, None, scale=scale, u=u)
+    prods = torch.cumprod(qa @ x, dim=0)                           # (d, B)
+    terms = torch.cat([c[:1].expand(1, B), c[1:, None] * prods])
+    return torch.cumsum(terms, dim=0)[-1]
+
+
+def polynomial_estimator(coeffs: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
+                         s: int, key: torch.Tensor,
+                         scale: torch.Tensor | None = None) -> torch.Tensor:
+    """C6, §4.1: unbiased estimate of P(aᵀx) = Σ mᵢ (aᵀx)ⁱ from i independent
+    quantizations per monomial, Πⱼ≤ᵢ Qⱼ(a)ᵀx. ``coeffs`` (d+1,) are
+    m₀..m_d; returns (B,). The variance grows with the degree (Lemma 4).
+    The d planes, one per key of ``split(key, d)``, are drawn in one
+    batched call with the bits of d separate draws."""
+    d = coeffs.shape[0] - 1
+    keys = prng.split(key, max(d, 1))[:d]
+    u = prng.uniform(keys, a.shape, device=a.device) if d else None
+    return poly_estimate(coeffs, a, x, s, u, scale)

@@ -7,14 +7,35 @@ M is a row scale (one scalar per vector, :func:`row_scale`) or a column
 scale (per feature over a dataset, :func:`column_scale`). Storage is a
 :class:`repro_torch.quant.QTensor` on the zipml grid; randomness enters
 through an explicit key (:mod:`repro_torch.prng`), bit-exact with the
-reference's ``jax.random`` draws.
+reference's ``jax.random`` draws. :func:`quantize_to_levels` rounds onto an
+arbitrary (variance-optimal, C4) level set. ``Quantized`` and ``IntTensor``
+are the reference's deprecated constructors of a :class:`QTensor`.
 """
 from __future__ import annotations
+
+import warnings
 
 import torch
 
 from repro_torch.quant import QScheme, QTensor
+from repro_torch.quant import qtensor as _qt
 from repro_torch.quant.qtensor import encode
+
+
+def Quantized(codes, scale, s: int, signed: bool = True) -> QTensor:
+    """Deprecated: construct a :class:`repro_torch.quant.QTensor` instead."""
+    warnings.warn(
+        "core.quantize.Quantized is deprecated; use repro_torch.quant.QTensor "
+        "with QScheme.zipml(s)", DeprecationWarning, stacklevel=2)
+    return QTensor(codes, torch.as_tensor(scale), QScheme.zipml(s, signed=signed))
+
+
+def IntTensor(codes, scale, bits: int) -> QTensor:
+    """Deprecated: construct a :class:`repro_torch.quant.QTensor` instead."""
+    warnings.warn(
+        "core.quantize.IntTensor is deprecated; use repro_torch.quant.QTensor "
+        "with QScheme.int_symmetric(bits)", DeprecationWarning, stacklevel=2)
+    return QTensor(codes, torch.as_tensor(scale), QScheme.int_symmetric(bits))
 
 
 def row_scale(v: torch.Tensor, norm: str = "linf") -> torch.Tensor:
@@ -36,13 +57,15 @@ def column_scale(data: torch.Tensor) -> torch.Tensor:
     return torch.where(m == 0, torch.ones_like(m), m)
 
 
-def quantize(v: torch.Tensor, s: int, key: torch.Tensor,
-             scale: torch.Tensor | None = None, signed: bool = True) -> QTensor:
+def quantize(v: torch.Tensor, s: int, key: torch.Tensor | None,
+             scale: torch.Tensor | None = None, signed: bool = True, *,
+             u: torch.Tensor | None = None) -> QTensor:
     """Stochastic uniform quantization Q(v, s), unbiased: codes are
-    sign · level ∈ [-s, s] (App. A.3 Eq. 10). ``scale=None`` → row scale."""
+    sign · level ∈ [-s, s] (App. A.3 Eq. 10). ``scale=None`` → row scale;
+    ``u`` is the uniform plane of ``key``, drawn beforehand."""
     if scale is None:
         scale = row_scale(v)
-    return encode(v, QScheme.zipml(s, signed=signed), key, scale=scale)
+    return encode(v, QScheme.zipml(s, signed=signed), key, scale=scale, u=u)
 
 
 def quantize_nearest(v: torch.Tensor, s: int, scale: torch.Tensor | None = None,
@@ -58,18 +81,37 @@ def dequantize(q: QTensor) -> torch.Tensor:
     return q.decode()
 
 
-def stochastic_quantize(v: torch.Tensor, s: int, key: torch.Tensor,
+def stochastic_quantize(v: torch.Tensor, s: int, key: torch.Tensor | None,
                         scale: torch.Tensor | None = None,
-                        signed: bool = True) -> torch.Tensor:
+                        signed: bool = True, *,
+                        u: torch.Tensor | None = None) -> torch.Tensor:
     """quantize → dequantize in one step: the low-precision values, the form
-    the double-sampling gradient math is written in."""
-    return quantize(v, s, key, scale=scale, signed=signed).decode()
+    the double-sampling gradient math is written in. ``u`` is the uniform
+    plane of ``key``, drawn beforehand (planes of several keys are drawn
+    in one batched call)."""
+    return quantize(v, s, key, scale=scale, signed=signed, u=u).decode()
 
 
-def quantize_to_levels(v, levels, key=None):
-    raise NotImplementedError(
-        "quantization onto variance-optimal levels is not ported yet "
-        "(ROADMAP A2.3, core/optimal.py)")
+def quantize_to_levels(v: torch.Tensor, levels: torch.Tensor, key=None, *,
+                       u: torch.Tensor | None = None):
+    """Stochastically quantize v onto a sorted 1-D level set (unbiased
+    inside its range; values outside are clamped): for v in [lo, hi] round
+    up with p = (v − lo)/(hi − lo). ``key=None`` (and no plane ``u``)
+    rounds to the nearest level. Returns (codes, values)."""
+    return _qt.quantize_to_levels(v, torch.as_tensor(levels, device=v.device), key, u=u)
+
+
+def int_quantize(v: torch.Tensor, bits: int, axis, key=None) -> QTensor:
+    """Symmetric per-channel quantization to ``bits`` (stochastic with a
+    ``key``): ``axis`` names the absmax reduction axes (None = one scale for
+    the tensor), kept with size 1 so the scale broadcasts."""
+    rounding = "nearest" if key is None else "stochastic"
+    if axis is None:
+        scheme = QScheme.int_symmetric(bits, rounding=rounding)
+    else:
+        scheme = QScheme.int_symmetric(bits, scaling="channel", rounding=rounding,
+                                       channel_axis=axis)
+    return encode(v, scheme, key)
 
 
 def tv_variance(v: torch.Tensor, s: int, scale: torch.Tensor | None = None) -> torch.Tensor:

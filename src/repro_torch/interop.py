@@ -2,7 +2,8 @@
 
 ``params_from_numpy(tree, device)`` takes the reference's parameter tree as
 nested dicts of numpy arrays, where a quantized leaf comes as
-``{"codes": ndarray, "scale": ndarray, "scheme": {QScheme fields}}``, and
+``{"codes": ndarray, "scale": ndarray, "scheme": {QScheme fields}}`` (plus
+``"levels"``, the level table of a ``grid='levels'`` QTensor), and
 returns the port's tree: tensors and :class:`~repro_torch.quant.QTensor`
 leaves on ``device`` (a bitplane QTensor's uint32 words arrive as the
 port's int32 words, bit for bit; its ``vec_dim`` rides in the scheme). bfloat16 arrays (``ml_dtypes``) arrive as torch
@@ -39,13 +40,17 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 
 def params_from_numpy(tree, device="cpu"):
     if isinstance(tree, dict):
-        if set(tree) == {"codes", "scale", "scheme"}:
+        if set(tree) in ({"codes", "scale", "scheme"},
+                         {"codes", "scale", "scheme", "levels"}):
             scheme = QScheme(**tree["scheme"])
             codes = np.asarray(tree["codes"])
             if scheme.layout == "bitplane":
                 codes = codes.view(np.int32)     # the uint32 words' bits
+            levels = tree.get("levels")
             return QTensor(tensor_from_numpy(codes, device),
-                           tensor_from_numpy(tree["scale"], device), scheme)
+                           tensor_from_numpy(tree["scale"], device), scheme,
+                           levels=None if levels is None
+                           else tensor_from_numpy(levels, device))
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
 

@@ -8,6 +8,8 @@
 //   base = clip(floor(t), 0, s − 1), frac = t − base,
 //   codeᵢ = sign(x) · (base + [uᵢ < frac]),
 //   u1 = (rand >> 16) · 2⁻¹⁶, u2 = (rand & 0xFFFF) · 2⁻¹⁶,
+// and both codes 0 where |x| / scale is NaN (a NaN x or scale), as the
+// reference's cast of NaN to int8 gives,
 // against row scales (R) or column scales (C). x is f32 or bf16, rand one
 // uint32 word per element, the codes int8 in [−s, s].
 //
@@ -43,8 +45,12 @@ __global__ void ds_quant_kernel(const XT* __restrict__ x,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const float xv = to_f32(x[i]);
-    const float sc = fmaxf(scale[col_scale ? i % C : i / C], 1e-30f);
-    const float mag = __fdiv_rn(fabsf(xv), sc);
+    const float sr = scale[col_scale ? i % C : i / C];
+    const float mag = __fdiv_rn(fabsf(xv), isnan(sr) ? sr : fmaxf(sr, 1e-30f));
+    if (isnan(mag)) {  // a NaN x or scale: XLA's float→int cast gives 0
+      c1[i] = c2[i] = 0;
+      continue;
+    }
     const float t = __fmul_rn(fminf(fmaxf(mag, 0.f), 1.f), fs);
     const float base = fminf(fmaxf(floorf(t), 0.f), top);
     const float frac = __fsub_rn(t, base);

@@ -1,6 +1,7 @@
 """Public wrappers around the kernels (port of ``repro.kernels.ops`` for
-``quant_dense_apply``, ``paged_attention``, ``ds_quantize``,
-``int8_matvec``, ``ds_gradient_from_codes``, ``quant_adamw_update`` and
+``quant_dense_apply``, ``paged_attention``, ``quantize_rows``,
+``dequantize_rows``, ``ds_quantize``, ``int8_matvec``,
+``ds_gradient_from_codes``, ``quant_adamw_update`` and
 ``quant_dense_bitplane``).
 
 Unlike the TPU wrappers nothing is padded to 128: the CUDA kernels mask
@@ -73,21 +74,40 @@ def paged_attention(q, k_pages, v_pages, k_scale, v_scale, block_table,
     return out.to(q.dtype)
 
 
-def ds_quantize(x: torch.Tensor, s: int, key: torch.Tensor, scale: torch.Tensor):
+def quantize_rows(x: torch.Tensor, s: int, key: torch.Tensor):
+    """Row-scaled stochastic quantization: ``row_absmax``, one
+    ``jax.random.bits(key, x.shape, uint32)``-exact plane made on x's
+    device, then ``stoch_quant``. x (R, C) → (codes int8 in [-s, s],
+    scale (R, 1) f32), unbiased: E[codes/s·scale] = x."""
+    if x.ndim != 2:
+        raise ValueError(f"quantize_rows takes a 2-D x, got {tuple(x.shape)}")
+    scale = sq_mod.row_absmax(x)
+    rand = prng.bits(key, x.shape, device=x.device, dtype=torch.int32)
+    return sq_mod.stoch_quant(x, rand, scale, s=s), scale
+
+
+def dequantize_rows(codes: torch.Tensor, scale: torch.Tensor, s: int) -> torch.Tensor:
+    """codes / s · scale in f32 (the reference computes it in jnp, outside
+    any kernel)."""
+    return codes.to(torch.float32) / s * scale
+
+
+def ds_quantize(x: torch.Tensor, s: int, key: torch.Tensor,
+                scale: torch.Tensor | None = None):
     """Fused double-sampling quantization: both Q₁/Q₂ int8 code planes from
     one pass over x (paper §2.2 — shared base + 1 extra bit), the rounding
     bits one ``jax.random.bits(key, x.shape, uint32)``-exact plane made on
     x's device.
 
-    A ``(R, 1)`` scale selects row scaling; anything else (a scalar, (C,),
+    ``scale=None`` takes per-row absmax scales (R, 1) from ``row_absmax``; a
+    ``(R, 1)`` scale selects row scaling; anything else (a scalar, (C,),
     (1, C)) broadcasts to column scales ``(1, C)``. Returns (codes1, codes2,
     scale) with E[codesᵢ/s·scale] = x."""
     if x.ndim != 2:
         raise ValueError(f"ds_quantize takes a 2-D x, got {tuple(x.shape)}")
-    if scale is None:
-        raise NotImplementedError(
-            "ds_quantize(scale=None) needs the row_absmax kernel (ROADMAP B2)")
     r, c = x.shape
+    if scale is None:
+        scale = sq_mod.row_absmax(x)
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     if tuple(scale.shape) == (r, 1):
         axis = "row"

@@ -100,7 +100,7 @@ def ds_quant_ref(x, rand, scale, *, s: int):
     ``ds_quant_ref``): a shared base level ⌊clip(|x|/scale)·s⌋ and two
     up-bits from the high and low 16 bits of one 32-bit ``rand`` word (int32
     bit patterns, widened and masked before shifting: torch cannot shift
-    uint32, ROADMAP C3)."""
+    uint32, ROADMAP C3); NaN → 0."""
     x32 = x.to(torch.float32)
     r = rand.to(torch.int64) & 0xFFFFFFFF
     u1 = (r >> 16).to(torch.float32) * (1.0 / (1 << 16))
@@ -110,9 +110,36 @@ def ds_quant_ref(x, rand, scale, *, s: int):
     base = torch.clamp(torch.floor(t), 0, s - 1)
     frac = t - base
     sign = torch.sign(x32)
-    c1 = ((base + (u1 < frac).to(torch.float32)) * sign).to(torch.int8)
-    c2 = ((base + (u2 < frac).to(torch.float32)) * sign).to(torch.int8)
+    c1 = _nan_to_zero_int8((base + (u1 < frac).to(torch.float32)) * sign)
+    c2 = _nan_to_zero_int8((base + (u2 < frac).to(torch.float32)) * sign)
     return c1, c2
+
+
+def _nan_to_zero_int8(codes):
+    """f32 codes → int8, NaN (from a NaN x or scale) → 0: what the
+    reference's ``astype(int8)`` gives, where torch's cast is undefined."""
+    return torch.nan_to_num(codes, nan=0.0).to(torch.int8)
+
+
+def stoch_quant_ref(x, rand, scale, *, s: int):
+    """The single-plane stochastic quantizer in plain PyTorch (the
+    reference's ``stoch_quant_ref``): u = (rand ≫ 8)·2⁻²⁴ from the int32
+    bit patterns of uint32 words (widened and masked before shifting,
+    ROADMAP C3), codes = (lo + [u < t − lo])·sign(x) with
+    t = clip(|x|/scale, 0, 1)·s, lo = clip(⌊t⌋, 0, s − 1); NaN → 0."""
+    x32 = x.to(torch.float32)
+    r = rand.to(torch.int64) & 0xFFFFFFFF
+    uf = (r >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    mag = x32.abs() / torch.clamp_min(scale.to(torch.float32), 1e-30)
+    t = torch.clamp(mag, 0.0, 1.0) * s
+    lo = torch.clamp(torch.floor(t), 0, s - 1)
+    codes = lo + (uf < (t - lo)).to(torch.float32)
+    return _nan_to_zero_int8(codes * torch.sign(x32))
+
+
+def row_absmax_ref(x):
+    """(R, C) → (R, 1) f32 max|x| per row (``jnp.max``: NaN propagates)."""
+    return torch.amax(x.to(torch.float32).abs(), dim=1, keepdim=True)
 
 
 def qmv_ref(codes, v):

@@ -11,7 +11,9 @@ Two backends:
   its own key.
 * ``cuda`` — the hand-written Hopper kernels (``csrc/qmm.cu``,
   ``csrc/qmm_t.cu``, ``csrc/qmm_bitplane.cu``, ``csrc/paged_attn.cu``,
-  ``csrc/ds_quant.cu``, ``csrc/qmv.cu``, ``csrc/quant_adamw.cu``). Given CUDA
+  ``csrc/ds_quant.cu``, ``csrc/qmv.cu``, ``csrc/quant_adamw.cu``; level-table
+  weights take the reference's decode fallback, as no kernel of the
+  reference streams them). Given CUDA
   tensors it launches them or raises — it never hands work to a plain
   version; given CPU tensors each kernel wrapper computes its plain version
   (that is how the CPU tests reach it). Its double-sampling pair shares one
@@ -51,7 +53,8 @@ class KernelBackend:
         between the multiply and the f32 dot is dropped), so the port
         decodes the same way there. A bitplane weight's decode ends in a
         contraction over its planes, which XLA does not fuse into the dot:
-        it stays bf16 for either ``x``."""
+        it stays bf16 for either ``x``, and so does a level-table weight,
+        whose decode is a table lookup."""
         from repro_torch.quant import QTensor
         from repro_torch.quant.quant_dense import mm_f32
 
@@ -59,7 +62,8 @@ class KernelBackend:
             raise NotImplementedError(
                 "quant_dense takes 2-D weights; slice stacked layers with "
                 "QTensor.index (stacked experts: ROADMAP A6)")
-        if x.dtype == torch.float32 and qt.scheme.layout == "dense":
+        if x.dtype == torch.float32 and qt.scheme.layout == "dense" \
+                and qt.scheme.grid != "levels":
             w = QTensor(qt.codes, qt.scale.to(torch.bfloat16), qt.scheme).decode()
         else:
             w = qt.decode(torch.bfloat16)
@@ -157,14 +161,18 @@ class _CudaBackend(KernelBackend):
     def quant_dense(self, x, qt, *, transpose: bool = False):
         """Stream the code plane through ``qmm`` (or ``qmm_t`` for x · Wᵀ,
         the code-domain backward), bitplane words through
-        ``qmm_bitplane``."""
+        ``qmm_bitplane``. A level-table weight takes the reference's decode
+        fallback — look the codes up, then one matmul — as the reference's
+        ``pallas`` backend does: no kernel of the reference streams it."""
         sch = qt.scheme
         if sch.layout == "bitplane":
             return self._quant_dense_bitplane(x, qt, transpose)
+        if sch.grid == "levels":
+            return KernelBackend.quant_dense(self, x, qt, transpose=transpose)
         if sch.grid != "int" or qt.ndim != 2:
             raise NotImplementedError(
                 f"cuda quant_dense takes 2-D int-grid weights, got {qt!r} "
-                "(the level grid: ROADMAP A2.3; stacked experts: A6)")
+                "(stacked experts: ROADMAP A6)")
         packed = bool(sch.packed)
         if qt.codes.dtype != (torch.uint8 if packed else torch.int8):
             raise NotImplementedError(f"cuda quant_dense: codes of {qt.codes.dtype}")

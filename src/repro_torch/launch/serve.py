@@ -21,6 +21,12 @@ token-identical to vanilla decode):
       --device cpu --weight-bits 8 --kv-bits 8 --weight-layout bitplane \
       --spec-decode 3 --draft-bits 4
 
+``--optimal-levels`` stores the weights on variance-optimal level tables
+(§3.3; ``--weight-bits 8`` gives 255 levels per weight):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+      --device cpu --requests 4 --weight-bits 8 --kv-bits 8 --optimal-levels
+
 Multi-replica serving, prefix caching, chunked prefill and sampling wait
 for ROADMAP A3.
 """
@@ -37,10 +43,11 @@ from repro_torch.precision.qat import quantize_param_tree
 from repro_torch.quant import PrecisionPlan
 
 
-def _resolve_plan(plan, kv_bits, weight_bits) -> PrecisionPlan:
+def _resolve_plan(plan, kv_bits, weight_bits, optimal_levels=False) -> PrecisionPlan:
     if plan is None:
         plan = PrecisionPlan(kv_bits=kv_bits, model_bits=weight_bits,
-                             model_storage="int" if weight_bits else "fake")
+                             model_storage="int" if weight_bits else "fake",
+                             optimal_levels=optimal_levels)
     if plan.model_bits and plan.model_storage != "int":
         plan = dataclasses.replace(plan, model_storage="int")
     return plan
@@ -52,8 +59,10 @@ def _build(arch: str, *, reduced: bool, plan: PrecisionPlan, seed: int, device,
     cfg = get(arch, precision=plan)
     params = T.init_params(cfg, seed=seed, device=device)
     if plan.model_bits:
-        params = quantize_param_tree(params, bits=plan.model_bits,
-                                     layout=weight_layout)
+        params = quantize_param_tree(
+            params, bits=plan.model_bits,
+            optimal=plan.optimal_levels and weight_layout == "dense",
+            layout=weight_layout)
     return cfg, params
 
 
@@ -84,7 +93,8 @@ def serve_engine(arch: str, *, reduced: bool = True, n_requests: int = 16,
                  weight_layout: str = "dense", autoscale: bool = False,
                  slo_admit_ms: float | None = None, prefix_cache: bool = False,
                  chunk_pages: int | None = None, spec_decode: int = 0,
-                 draft_bits: int | None = None, ship_dir: str | None = None):
+                 draft_bits: int | None = None, ship_dir: str | None = None,
+                 optimal_levels: bool = False):
     """Serve a mixed-length trace through one engine on ``device`` (default
     ``cuda``) with random weights from ``seed``. Returns (engine, results
     dict rid → Finished).
@@ -97,7 +107,11 @@ def serve_engine(arch: str, *, reduced: bool = True, n_requests: int = 16,
     self-speculative decoding through the b-bit view; ``ship_dir`` writes
     the bitplane weights as a ``weights-bitplane-v1`` artifact there and
     serves from the artifact loaded back. The last three need
-    ``weight_layout='bitplane'`` with ``weight_bits > 0``."""
+    ``weight_layout='bitplane'`` with ``weight_bits > 0``.
+    ``optimal_levels=True`` stores the dense weights on variance-optimal
+    level tables (§3.3), served through the decode fallback. ``plan``,
+    when given, overrides ``kv_bits``, ``weight_bits`` and
+    ``optimal_levels``."""
     from repro_torch.ckpt import load_ship_weights, save_ship_weights
     from repro_torch.serve import AutoscalerConfig, PrecisionAutoscaler, ServeEngine
 
@@ -105,7 +119,7 @@ def serve_engine(arch: str, *, reduced: bool = True, n_requests: int = 16,
         raise NotImplementedError("ReplicaSet (replicas > 1) is not in the port "
                                   "yet (ROADMAP A3)")
     dev = resolve_device(device)
-    plan = _resolve_plan(plan, kv_bits, weight_bits)
+    plan = _resolve_plan(plan, kv_bits, weight_bits, optimal_levels)
     bitplane = weight_layout == "bitplane" and plan.model_bits
     if spec_decode and not bitplane:
         raise ValueError(
@@ -159,6 +173,9 @@ def main(argv=None):
     ap.add_argument("--draft-bits", type=int, default=None,
                     help="weight bits of the speculative draft view (below the "
                          "serving bits)")
+    ap.add_argument("--optimal-levels", action="store_true",
+                    help="store the weights on variance-optimal level tables "
+                         "(dense layout)")
     ap.add_argument("--autoscale", action="store_true",
                     help="adapt weight bits to load (needs bitplane layout)")
     ap.add_argument("--slo-admit-ms", type=float, default=None,
@@ -187,7 +204,7 @@ def main(argv=None):
         page_size=args.page_size, backend=args.kernel_backend, device=args.device,
         weight_layout=args.weight_layout, autoscale=args.autoscale,
         slo_admit_ms=args.slo_admit_ms, spec_decode=args.spec_decode,
-        draft_bits=args.draft_bits)
+        draft_bits=args.draft_bits, optimal_levels=args.optimal_levels)
     st = engine.stats
     gen_total = sum(f.n_generated for f in results.values())
     print(f"[serve-engine] {len(results)} requests, {gen_total} tokens "

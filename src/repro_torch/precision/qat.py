@@ -15,16 +15,19 @@
 
 ``quantize_param_tree(..., layout='bitplane')`` stores each matmul weight
 bit-serially (:meth:`~repro_torch.quant.QScheme.bitplane`): one artifact
-serves any precision 1..bits through ``QTensor.slice_planes``. Level tables
-(``optimal``) and ``include_embedding`` wait for ROADMAP A2.3 and A5.
+serves any precision 1..bits through ``QTensor.slice_planes``.
+``optimal=True`` snaps each weight onto its variance-optimal symmetric level
+set (§3.3's Optimal5), a ``grid='levels'`` QTensor with int16 codes and its
+level table. ``include_embedding`` waits for ROADMAP A5.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import optimal as opt_mod
 from repro_torch.quant import QScheme, QTensor, ShipWeight, encode
-
 
 def _is_weight(key: str, leaf) -> bool:
     """Matmul weights only: 2-D+ leaves named ``w`` (embedding tables stay
@@ -56,6 +59,64 @@ def _map_weights(params, fn):
     return out
 
 
+def _optimal_quantize_weight(w: torch.Tensor, bits: int, sample: int = 65536) -> QTensor:
+    """C4 + C5: codes snapped to the weight's variance-optimal symmetric
+    level set — the discretized DP (M 256) on |w| over the leaf's largest
+    magnitude, mirrored around 0 — stored as int16 level indices with the
+    f32 table. Leaves above ``sample`` entries fit on ``sample`` of them
+    drawn by ``default_rng(0).choice(n, sample, replace=False)``: the
+    indices of the reference's ``choice`` on the flattened array (the same
+    draw), gathered on the weight's device rather than copying the whole
+    leaf to the host. Stacked (L, K, N) weights carry the table per layer,
+    (L, n_levels), and encode layer by layer."""
+    flat = w.detach().reshape(-1)
+    if flat.numel() > sample:
+        idx = np.random.default_rng(0).choice(flat.numel(), sample, replace=False)
+        flat = flat[torch.from_numpy(idx).to(flat.device)]
+    w_np = flat.to(torch.float32).cpu().numpy()
+    s = 2 ** (bits - 1) - 1
+    hi = float(np.abs(w_np).max()) or 1.0
+    lv = opt_mod.optimal_levels_discretized(np.abs(w_np) / hi, s, M=256) * hi
+    levels = torch.as_tensor(np.concatenate([-lv[::-1], lv[1:]]),
+                             dtype=torch.float32).to(w.device)
+    scheme = QScheme.levels(levels.shape[0], rounding="nearest")
+    lead = tuple(w.shape[:-2])
+    layers = w.reshape(-1, *w.shape[-2:]).unbind(0)
+    codes = torch.stack([encode(wi.to(torch.float32), scheme, levels=levels)
+                         .codes.to(torch.int16) for wi in layers]).reshape(w.shape)
+    if lead:
+        levels = levels.expand(*lead, levels.shape[0])
+    return QTensor(codes, torch.ones(lead, dtype=torch.float32, device=w.device),
+                   scheme, levels=levels)
+
+
+def migrate_spliced_weights(params, bits: int = 8):
+    """The reference's one-shot migration of the old spliced weight dicts
+    (``w_q`` + ``w_scale`` int splices, ``w_lvl_codes`` + ``w_levels`` level
+    splices) to a QTensor at ``"w"``; a dim-less level table next to
+    stacked codes is broadcast per layer. ``bits`` labels the int scheme."""
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: fix(v) for k, v in node.items()}
+        if "w_q" in node:
+            codes = node.pop("w_q")
+            scale = torch.as_tensor(node.pop("w_scale"), dtype=torch.float32)
+            node["w"] = QTensor(codes, scale, _weight_scheme(bits))
+        elif "w_lvl_codes" in node:
+            codes = node.pop("w_lvl_codes")
+            levels = torch.as_tensor(node.pop("w_levels"), dtype=torch.float32)
+            lead = tuple(codes.shape[:-2])
+            if lead and levels.ndim == 1:
+                levels = levels.expand(*lead, levels.shape[0])
+            node["w"] = QTensor(codes, torch.ones(lead, dtype=torch.float32),
+                                QScheme.levels(int(levels.shape[-1])), levels=levels)
+        return node
+
+    return fix(params)
+
+
 def quantize_param_tree(params, bits: int = 8, optimal: bool = False,
                         packed: bool | None = None,
                         include_embedding: bool = False,
@@ -64,7 +125,8 @@ def quantize_param_tree(params, bits: int = 8, optimal: bool = False,
     storage (codes and scales byte-identical to the reference).
 
     ``layout='bitplane'`` stores each weight bit-serially; it excludes
-    ``optimal=`` and ``packed=``. A stacked (L, K, N) weight is encoded one
+    ``optimal=`` and ``packed=``. ``optimal=True`` stores each weight on its
+    variance-optimal level table. A stacked (L, K, N) weight is encoded one
     layer at a time, which bounds the encode's temporaries (several f32 and
     int copies of the leaf) by one layer's — a few GB less per full-width
     MLP weight — and gives the whole-leaf codes, since the channel scales
@@ -73,12 +135,13 @@ def quantize_param_tree(params, bits: int = 8, optimal: bool = False,
         raise ValueError(f"layout must be 'dense' or 'bitplane', got {layout!r}")
     if layout == "bitplane" and (optimal or packed):
         raise ValueError("layout='bitplane' excludes optimal= and packed=")
-    if optimal or include_embedding:
+    if include_embedding:
         raise NotImplementedError(
-            "optimal levels / quantized embeddings are not ported "
-            "(ROADMAP A2.3, A5)")
+            "quantized embedding tables are not ported (ROADMAP A5)")
     if layout == "bitplane":
         return _map_weights(params, lambda w: _encode_by_layer(w, QScheme.bitplane(bits)))
+    if optimal:
+        return _map_weights(params, lambda w: _optimal_quantize_weight(w, bits))
     return _map_weights(params, lambda w: encode(
         w, _weight_scheme(bits, packed=_auto_packed(bits, w, packed))))
 

@@ -25,6 +25,12 @@ bits): torch on the CPU cannot shift ``uint32`` (ROADMAP C3), while an
 arithmetic shift of an ``int32`` followed by ``& 1`` reads every bit, bit
 31 included.
 
+The level grid (``grid='levels'``, C4) stores indices into a sorted level
+table carried as ``levels``: :func:`quantize_to_levels` rounds onto it
+(``searchsorted(side='right')`` as ``torch.searchsorted(right=True)``, the
+up-draw ``jax.random.uniform``-exact), and decode looks the codes up — in a
+per-slice table for stacked weights, whose ``levels`` are (L, n_levels).
+
 Stacked layer weights keep their leading layer axis — codes (L, K, N) with
 (L, 1, N) channel scales, bitplane codes (L, P, K, W) — and
 :meth:`QTensor.index` hands out the per-layer view without copying.
@@ -42,24 +48,25 @@ from repro_torch import prng
 from .scheme import QScheme
 
 
-def _todo(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _code_dtype(s: int):
     return torch.int8 if s <= 127 else torch.int32
 
 
-def stochastic_round(t: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+def stochastic_round(t: torch.Tensor, key: torch.Tensor | None,
+                     u: torch.Tensor | None = None) -> torch.Tensor:
     """Unbiased stochastic rounding ⌊t⌋ + Bernoulli(t − ⌊t⌋) (Lemma 6), the
-    uniform draw bit-exact with ``jax.random.uniform(key, t.shape)``."""
+    uniform draw bit-exact with ``jax.random.uniform(key, t.shape)`` — or
+    the plane ``u`` drawn beforehand from that key."""
     lo = torch.floor(t)
-    u = prng.uniform(key, t.shape, device=t.device)
+    if u is None:
+        u = prng.uniform(key, t.shape, device=t.device)
     return lo + (u < (t - lo)).to(torch.float32)
 
 
-def _round(t: torch.Tensor, key) -> torch.Tensor:
-    return torch.round(t) if key is None else stochastic_round(t, key)
+def _round(t: torch.Tensor, key, u=None) -> torch.Tensor:
+    if key is None and u is None:
+        return torch.round(t)
+    return stochastic_round(t, key, u)
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
@@ -165,7 +172,7 @@ def compute_scale(x: torch.Tensor, scheme: QScheme) -> torch.Tensor:
     bitplane layout, with an
     all-zero group mapped to scale 1 (so its decode is exact)."""
     if scheme.grid == "levels":
-        _todo("grid 'levels'", "A2.3")
+        raise ValueError("grid='levels' has no scale: its codes index a level table")
     m = _absmax(x.detach().to(torch.float32), scheme)
     if scheme.grid == "int" and scheme.layout == "bitplane":
         # magnitudes live on [0, 1): the scale is the absmax itself, the
@@ -179,17 +186,18 @@ def compute_scale(x: torch.Tensor, scheme: QScheme) -> torch.Tensor:
 class QTensor:
     """codes + scale(s) + scheme, plus the second double-sampling plane
     ``codes2`` of a §2.2 pair (Q₁ and Q₂ share the base level, so the pair
-    costs one extra bit). The reference's ``levels`` table waits for the
-    level grid (ROADMAP A2.3)."""
+    costs one extra bit) and the ``levels`` table of the level grid."""
 
-    __slots__ = ("codes", "scale", "scheme", "codes2")
+    __slots__ = ("codes", "scale", "scheme", "codes2", "levels")
 
     def __init__(self, codes: torch.Tensor, scale: torch.Tensor, scheme: QScheme,
-                 codes2: torch.Tensor | None = None):
+                 codes2: torch.Tensor | None = None,
+                 levels: torch.Tensor | None = None):
         self.codes = codes
         self.scale = scale
         self.scheme = scheme
         self.codes2 = codes2
+        self.levels = levels
 
     @property
     def shape(self):
@@ -215,20 +223,24 @@ class QTensor:
 
     @property
     def nbytes(self) -> int:
-        """Logical HBM bytes: packed codes + f32 scales (the reference's
-        ``QTensor.nbytes`` accounting). Bitplane codes count their 32-bit
-        words, so a ``slice_planes(k)`` view costs bytes linear in k + 1."""
+        """Logical HBM bytes: packed codes + f32 scales + f32 level table
+        (the reference's ``QTensor.nbytes`` accounting). Bitplane codes
+        count their 32-bit words, so a ``slice_planes(k)`` view costs bytes
+        linear in k + 1."""
         if self.scheme.layout == "bitplane":
             return 4 * math.prod(self.codes.shape) + 4 * math.prod(self.scale.shape)
         n = math.prod(self.codes.shape)
         if self.scheme.packed:
             n *= 2                               # two logical codes per byte
-        return -(-n * self.nbits // 8) + math.prod(self.scale.shape) * 4
+        total = -(-n * self.nbits // 8) + math.prod(self.scale.shape) * 4
+        if self.levels is not None:
+            total += 4 * math.prod(self.levels.shape)
+        return total
 
     def _decode_plane(self, codes, dtype=None) -> torch.Tensor:
         sch = self.scheme
         if sch.grid == "levels":
-            _todo("decode of grid 'levels'", "A2.3")
+            return decode_levels(codes, self.levels, dtype)
         ct = torch.float32 if dtype is None else dtype
         if sch.layout == "bitplane":
             return decode_bitplanes(codes, self.scale, sch.vec_dim, ct)
@@ -271,13 +283,19 @@ class QTensor:
         return dot(self, v, backend=backend)
 
     def index(self, i: int) -> "QTensor":
-        """Layer ``i`` of a stacked (L, …) QTensor — views, not copies."""
+        """Layer ``i`` of a stacked (L, …) QTensor — views, not copies (a
+        per-slice level table is sliced with it)."""
+        lv = self.levels
         return QTensor(self.codes[i], self.scale[i], self.scheme,
-                       None if self.codes2 is None else self.codes2[i])
+                       None if self.codes2 is None else self.codes2[i],
+                       lv[i] if lv is not None and lv.ndim > 1 else lv)
 
     def to(self, device) -> "QTensor":
+        def mv(t):
+            return None if t is None else t.to(device)
+
         return QTensor(self.codes.to(device), self.scale.to(device), self.scheme,
-                       None if self.codes2 is None else self.codes2.to(device))
+                       mv(self.codes2), mv(self.levels))
 
     def __repr__(self):
         extra = "+ds" if self.is_ds else ""
@@ -286,45 +304,102 @@ class QTensor:
 
 
 def encode(x: torch.Tensor, scheme: QScheme, key: torch.Tensor | None = None,
-           scale: torch.Tensor | None = None, backend=None) -> QTensor:
+           scale: torch.Tensor | None = None, levels: torch.Tensor | None = None,
+           backend=None, *, u: torch.Tensor | None = None) -> QTensor:
     """Quantize ``x`` under ``scheme`` (the reference's ``encode_jnp``
     numerics). Both grids take stochastic rounding (``key`` required; the
     uniform draw is ``jax.random.uniform(key, x.shape)``-exact) or nearest:
     the int grid gives int8 codes (packed uint8 nibbles at ``packed=True``),
     the zipml grid codes on s intervals, the bitplane layout its packed
-    sign and magnitude planes; ``rounding='ds'`` draws the §2.2
-    pair through :func:`ds_pair`. ``scale=None`` computes the scheme's own
-    scale."""
+    sign and magnitude planes, the level grid indices into ``levels``
+    (scale 1); ``rounding='ds'`` draws the §2.2 pair through
+    :func:`ds_pair`. ``scale=None`` computes the scheme's own scale. ``u``
+    stands in for the stochastic draw ``prng.uniform(key, x.shape)`` (a
+    plane drawn beforehand, in a batch with others)."""
     if scheme.rounding == "ds":
         return ds_pair(x, scheme, key, scale=scale, backend=backend)
-    if scheme.rounding == "stochastic" and key is None:
+    if scheme.rounding == "stochastic" and key is None and u is None:
         raise ValueError("stochastic rounding requires a PRNG key")
+    if scheme.grid == "levels":
+        if levels is None:
+            raise ValueError("grid='levels' requires a level table")
+        levels = torch.as_tensor(levels, dtype=torch.float32, device=x.device)
+        nearest = scheme.rounding == "nearest"
+        codes, _ = quantize_to_levels(x, levels, None if nearest else key,
+                                      u=None if nearest else u)
+        return QTensor(codes, torch.ones((), dtype=torch.float32, device=x.device),
+                       scheme, levels=levels)
     if scale is None:
         scale = compute_scale(x, scheme)
     else:
         scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     if scheme.layout == "bitplane":
         return _encode_bitplane(x, scheme, scale)
+    nearest = scheme.rounding == "nearest"
+    rkey, ru = (None, None) if nearest else (key, u)
     if scheme.grid == "zipml":
-        return _encode_zipml(x, scheme, scale,
-                             None if scheme.rounding == "nearest" else key)
+        return _encode_zipml(x, scheme, scale, rkey, ru)
     qmax = float(scheme.qmax)
     t = x.to(torch.float32) / scale
-    rkey = None if scheme.rounding == "nearest" else key
-    codes = torch.clamp(_round(t, rkey), -qmax, qmax).to(_code_dtype(scheme.qmax))
+    codes = torch.clamp(_round(t, rkey, ru), -qmax, qmax).to(_code_dtype(scheme.qmax))
     if scheme.packed:
         codes = pack_int4(codes)
     return QTensor(codes, scale, scheme)
 
 
-def _encode_zipml(x, scheme: QScheme, scale, key) -> QTensor:
+def _encode_zipml(x, scheme: QScheme, scale, key, u=None) -> QTensor:
     s = scheme.s
     xn = (x / scale).to(torch.float32)
     mag = torch.clamp(xn.abs() if scheme.signed else xn, 0.0, 1.0)
-    codes = _round(mag * s, key)
+    codes = _round(mag * s, key, u)
     if scheme.signed:
         codes = codes * torch.sign(xn)
     return QTensor(codes.to(_code_dtype(s)), scale, scheme)
+
+
+def quantize_to_levels(v: torch.Tensor, levels: torch.Tensor, key=None, *,
+                       u: torch.Tensor | None = None):
+    """Stochastic (``key`` or a uniform plane ``u``) or nearest (neither)
+    rounding onto a sorted level table, unbiased inside its range — the
+    reference's ``quantize_to_levels_jnp``. ``levels`` is one table (L,)
+    or one per leading slice of ``v`` (…, L) against ``v`` (…, n). Returns
+    (codes, values): int8 codes for up to 128 levels, int32 above."""
+    lv = levels.to(torch.float32)
+    v32 = v.to(torch.float32)
+    k = lv.shape[-1]
+    vc = torch.clamp(v32, lv[..., :1], lv[..., -1:]) if lv.ndim > 1 else \
+        torch.clamp(v32, lv[0], lv[-1])
+    if lv.ndim > 1:
+        hi_idx = torch.searchsorted(lv.contiguous(), vc.contiguous(), right=True)
+    else:
+        hi_idx = torch.searchsorted(lv.contiguous(), vc, right=True)
+    hi_idx = torch.clamp(hi_idx, 1, k - 1)
+    lo_idx = hi_idx - 1
+    if lv.ndim > 1:
+        lo, hi = torch.gather(lv, -1, lo_idx), torch.gather(lv, -1, hi_idx)
+    else:
+        lo, hi = lv[lo_idx], lv[hi_idx]
+    width = torch.clamp_min(hi - lo, 1e-30)
+    p_up = (vc - lo) / width
+    if u is None and key is not None:
+        u = prng.uniform(key, v32.shape, device=v32.device)
+    up = p_up >= 0.5 if u is None else u < p_up
+    codes = torch.where(up, hi_idx, lo_idx).to(_code_dtype(k - 1))
+    return codes, torch.where(up, hi, lo)
+
+
+def decode_levels(codes: torch.Tensor, levels: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Level-table lookup: one table (L,), or one per leading slice
+    (…, L) of codes (…, rows, cols). The table is cast to ``dtype`` first,
+    which rounds each value as casting the looked-up values would."""
+    lv = levels if dtype is None else levels.to(dtype)
+    idx = codes.reshape(-1).to(torch.int32)
+    if lv.ndim == 1:
+        return torch.index_select(lv, 0, idx).reshape(codes.shape)
+    lead = math.prod(lv.shape[:-1])
+    flat = lv.reshape(lead, lv.shape[-1])
+    per = idx.reshape(lead, -1).to(torch.int64)
+    return torch.gather(flat, 1, per).reshape(codes.shape)
 
 
 def ds_pair_plain(x: torch.Tensor, scheme: QScheme, key: torch.Tensor,

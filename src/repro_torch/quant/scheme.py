@@ -8,8 +8,9 @@ paper's interval grid (``grid='zipml'``), each with stochastic, nearest and
 double-sampled rounding, under tensor, row, column and channel scaling, and
 the bitplane layout (``layout='bitplane'``: a sign plane + ``bits``
 magnitude planes, MSB first, 32 elements per 32-bit word — one artifact
-serves every precision 1..bits through ``QTensor.slice_planes``); the level
-grid raises in ``qtensor`` until ROADMAP A2.3 ports it.
+serves every precision 1..bits through ``QTensor.slice_planes``), and the
+level grid (``grid='levels'``: indices into a variance-optimal level table,
+C4, carried as the QTensor's ``levels``).
 """
 from __future__ import annotations
 
@@ -103,3 +104,10 @@ class QScheme:
         return cls(bits=int(bits), grid="int", scaling=scaling,
                    rounding="nearest", channel_axis=channel_axis,
                    layout="bitplane")
+
+    @classmethod
+    def levels(cls, n_levels: int, *, rounding: str = "nearest") -> "QScheme":
+        """Arbitrary (variance-optimal) level-table storage, C4: codes index
+        an ``n_levels``-entry table."""
+        return cls(bits=max(int(n_levels - 1).bit_length(), 1), grid="levels",
+                   rounding=rounding, s=int(n_levels - 1))

@@ -10,7 +10,9 @@ dequant, f32 accumulation order); paged attention abs 1e-5 (both f32 online
 softmax); ``ds_quant`` bit-exact (same rand, IEEE division, no FMA
 contraction); ``train_linear`` per-epoch losses rel 1e-5 between the card
 and the CPU's plain path (same keys, same codes; sums in another order);
-``qmm_t`` rel 1e-5 of the largest output; ``quant_adamw`` the reference's
+``row_absmax`` and ``stoch_quant`` bit-exact (a max is exact in any
+order; the rounding as ``ds_quant``'s); ``qmm_t`` rel 1e-5 of the largest
+output; ``quant_adamw`` the reference's
 contract (masters rtol 2e-6 / atol 2e-6, scales rtol 1e-6, ≥ 99.9 % of
 codes equal, off by at most one level); the reduced training step on the
 card against the CPU's plain path: losses rtol 1e-4; ``qmm_bitplane`` rel
@@ -138,6 +140,141 @@ def test_ds_quant_kernel_rejects_wide_s_and_int64_rand(cuda):
         tsq.ds_quant(x, torch.zeros(4, 8, dtype=torch.int64, device=cuda), scale, s=7)
 
 
+SQ_SHAPES = [(16, 5000), (13, 1001), (64, 384), (1, 7), (7, 3), (5, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,c", SQ_SHAPES)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_row_absmax_kernel_bit_exact(cuda, r, c, xdtype):
+    rng = np.random.default_rng(r * c)
+    x = torch.from_numpy(rng.normal(0, 2, (r, c)).astype(np.float32)).to(xdtype)
+    x[0] = 0.0                                   # an all-zero row
+    x[-1, -1] = -0.0
+    xd = x.to(cuda)
+    before = tsq.row_absmax_launches
+    got = tsq.row_absmax(xd)
+    torch.cuda.synchronize()
+    assert tsq.row_absmax_launches == before + 1
+    assert got.shape == (r, 1) and got.dtype == torch.float32
+    assert torch.equal(got, tsq.row_absmax_plain(xd))
+    assert torch.equal(got.cpu(), tsq.row_absmax(x))
+    assert not torch.signbit(got).any()          # |−0| is +0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_row_absmax_kernel_propagates_nan(cuda, xdtype):
+    x = torch.randn(6, 1001, device=cuda).to(xdtype)
+    for j in (0, 500, 1000):                     # head, vector body, tail
+        y = x.clone()
+        y[3, j] = float("nan")
+        got = tsq.row_absmax(y)
+        want = tsq.row_absmax_plain(y)
+        assert torch.isnan(got[3, 0]) and torch.isnan(want[3, 0])
+        keep = torch.arange(6, device=cuda) != 3
+        assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.gpu
+def test_row_absmax_kernel_unaligned_view(cuda):
+    base = torch.randn(9, 1003, device=cuda)
+    for x in (base[1:, 1:], base[:, 3:], base[2:7]):
+        assert torch.equal(tsq.row_absmax(x), tsq.row_absmax_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,c", SQ_SHAPES)
+@pytest.mark.parametrize("s", [1, 3, 15, 127])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_stoch_quant_kernel_bit_exact(cuda, r, c, s, xdtype):
+    rng = np.random.default_rng(r * c + s)
+    x = torch.from_numpy(rng.normal(0, 2, (r, c)).astype(np.float32)).to(xdtype)
+    x[0] = 0.0                                   # an all-zero row: scale 0
+    rand = prng.bits(prng.PRNGKey(s), (r, c)).to(torch.int32)
+    scale = tsq.row_absmax_plain(x)
+    xd, rd, sd = x.to(cuda), rand.to(cuda), scale.to(cuda)
+    before = tsq.stoch_quant_launches
+    got = tsq.stoch_quant(xd, rd, sd, s=s)
+    torch.cuda.synchronize()
+    assert tsq.stoch_quant_launches == before + 1
+    assert torch.equal(got, tsq.stoch_quant_plain(xd, rd, sd, s=s))
+    assert torch.equal(got.cpu(), tsq.stoch_quant(x, rand, scale, s=s))
+    assert int(got.abs().max()) <= s
+
+
+@pytest.mark.gpu
+def test_stoch_quant_kernel_unaligned_views(cuda):
+    x = torch.randn(10, 1001, device=cuda)
+    rand = prng.bits(prng.PRNGKey(2), (10, 1001), device=cuda).to(torch.int32)
+    for sl in (slice(1, None), slice(3, 8)):
+        xs, rs = x[sl], rand[sl]                 # contiguous, offset rows
+        sc = tsq.row_absmax_plain(xs)
+        assert torch.equal(tsq.stoch_quant(xs, rs, sc, s=15),
+                           tsq.stoch_quant_plain(xs, rs, sc, s=15))
+
+
+@pytest.mark.gpu
+def test_stoch_quant_kernel_rejects_bad_operands(cuda):
+    x = torch.ones(4, 8, device=cuda)
+    scale = torch.ones(4, 1, device=cuda)
+    rand = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tsq.stoch_quant(x, rand, scale, s=128)
+    with pytest.raises(TypeError):
+        tsq.stoch_quant(x, rand.to(torch.int64), scale, s=7)
+    with pytest.raises(ValueError):
+        tsq.stoch_quant(x, rand, torch.ones(1, 8, device=cuda), s=7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_quantizers_give_zero_codes_on_nan(cuda, xdtype):
+    """A row holding a NaN has a NaN scale (row_absmax), and a NaN x or scale
+    gives code 0 in stoch_quant and ds_quant, kernel and plain version
+    alike (the reference's cast of NaN to int8 gives 0)."""
+    x = torch.randn(6, 1001, device=cuda).to(xdtype)
+    x[3, 500] = float("nan")                     # row 3: NaN scale
+    x[4, 7] = float("nan")                       # row 4: one NaN under a finite scale
+    rand = prng.bits(prng.PRNGKey(8), (6, 1001), device=cuda).to(torch.int32)
+    scale = tsq.row_absmax(x)
+    scale[4] = 3.0
+    codes, _ = tops.quantize_rows(x, 15, prng.PRNGKey(8))
+    assert not codes[3].any()
+    got = tsq.stoch_quant(x, rand, scale, s=15)
+    assert torch.equal(got, tsq.stoch_quant_plain(x, rand, scale, s=15))
+    assert not got[3].any() and got[4, 7] == 0 and got[4].any()
+    col = torch.full((1, 1001), 3.0, device=cuda)
+    col[0, 9] = float("nan")                     # column 9: NaN scale
+    for axis, sc in (("row", scale), ("col", col)):
+        planes = tsq.ds_quant(x, rand, sc, s=15, scale_axis=axis)
+        for g, w in zip(planes, tsq.ds_quant_plain(x, rand, sc, s=15)):
+            assert torch.equal(g, w)
+    assert not planes[0][:, 9].any()
+    c1, c2, _ = tops.ds_quantize(x, 15, prng.PRNGKey(8))
+    assert not c1[3].any() and not c2[3].any()
+
+
+@pytest.mark.gpu
+def test_quantize_rows_and_ds_quantize_launch_counts(cuda):
+    x = torch.randn(16, 5000, device=cuda)
+    key = prng.PRNGKey(4)
+    tsq.reset_counts()
+    codes, scale = tops.quantize_rows(x, 15, key)
+    c1, c2, sc = tops.ds_quantize(x, 15, key)
+    torch.cuda.synchronize()
+    assert (tsq.row_absmax_launches, tsq.stoch_quant_launches, tsq.launches) == (2, 1, 1)
+    assert tsq.shape_launches == {("row_absmax", 16, 5000): 2,
+                                  ("stoch_quant", 16, 5000): 1,
+                                  ("ds_quant", 16, 5000): 1}
+    cpu_codes, cpu_scale = tops.quantize_rows(x.cpu(), 15, key)
+    assert torch.equal(codes.cpu(), cpu_codes) and torch.equal(scale.cpu(), cpu_scale)
+    cpu = tops.ds_quantize(x.cpu(), 15, key)
+    for g, w in zip((c1, c2, sc), cpu):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(sc, scale)
+
+
 QMV_CASES = [((16, 5000), False), ((16, 5000), True), ((1024, 2048), False),
              ((1024, 2048), True), ((13, 1001), False), ((13, 1001), True),
              ((1, 5), False), ((3, 1), True)]
@@ -185,6 +322,31 @@ def test_train_linear_card_matches_cpu_plain_path(cuda):
                                          backend="cuda"),
                        model="lssvm", epochs=2, lr=0.3, device="cpu")
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["logistic", "svm-refetch", "optimal-levels"])
+def test_train_linear_slice5_card_matches_cpu_plain_path(cuda, case):
+    """The Chebyshev logistic model, the SVM's ℓ1 refetch and 'double' on
+    optimal levels, 512 cod-rna rows: per-epoch losses on the card within
+    rel 1e-4 of the CPU's (the same codes; sums in another order)."""
+    from repro_torch.core.linear import Dataset, make_dataset, train_linear
+    from repro_torch.quant import PrecisionPlan
+
+    d = make_dataset("cod-rna", n_test=64)
+    ds = Dataset(d.a_train[:512], d.b_train[:512], d.a_test, d.b_test, d.name)
+    plan, kw = {"logistic": (PrecisionPlan("double", sample_bits=4),
+                             dict(model="logistic", lr=0.4)),
+                "svm-refetch": (PrecisionPlan("double", sample_bits=8),
+                                dict(model="svm", lr=0.2, reg="ball", refetch="l1")),
+                "optimal-levels": (PrecisionPlan("double", sample_bits=3,
+                                                 optimal_levels=True), dict(lr=0.1))}[case]
+    card = train_linear(ds, plan, epochs=2, device=cuda, **kw)
+    cpu = train_linear(ds, plan, epochs=2, device="cpu", **kw)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
+    if case == "svm-refetch":       # a row whose margin sits on the bound may flip
+        np.testing.assert_allclose(card.extra["refetch_frac"], cpu.extra["refetch_frac"],
+                                   rtol=0, atol=0.01)
 
 
 QMM_T_SHAPES = [(1, 40, 24), (5, 64, 48), (13, 96, 130), (130, 257, 256),

@@ -146,9 +146,15 @@ def test_ds_quantize_and_gradient_match_reference_ops(scale_kind, s):
         _close(got.numpy(), np.asarray(want))
 
 
-def test_ds_quantize_without_scale_names_b2():
-    with pytest.raises(NotImplementedError, match="B2"):
-        tops.ds_quantize(torch.ones(4, 8), 7, prng.PRNGKey(0), None)
+def test_ds_quantize_without_scale_matches_reference_ops():
+    """``scale=None`` (formerly a ROADMAP B2 raise) takes per-row absmax
+    scales through ``row_absmax``."""
+    a, *_ = _problem(B=9, n=40, seed=6)
+    jkey = jax.random.PRNGKey(5)
+    want = jops.ds_quantize(jnp.asarray(a), 7, jkey)
+    got = tops.ds_quantize(_t(a), 7, bridge_key(jkey), None)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_cuda_backend_on_cpu_launches_nothing():
@@ -237,8 +243,12 @@ def test_core_quantize_matches_reference():
             tqz.quantize_nearest(_t(x), s).codes.numpy(),
             np.asarray(jqz.quantize_nearest(jnp.asarray(x), s).codes))
         _close(tqz.tv_variance(_t(x), s).numpy(), np.asarray(jqz.tv_variance(jnp.asarray(x), s)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqz.quantize_to_levels(_t(x), torch.linspace(0, 1, 4))
+    lv = np.linspace(-2, 2, 5).astype(np.float32)
+    for k in (None, jkey):
+        jc, jv = jqz.quantize_to_levels(jnp.asarray(x), jnp.asarray(lv), k)
+        tc, tv = tqz.quantize_to_levels(_t(x), _t(lv), None if k is None else key)
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
 # ----------------------------------------------- double sampling (C2, C3) --
@@ -336,12 +346,19 @@ def test_train_linear_loss_curves_match_reference(synth, model, mode, pairing):
 
 
 @pytest.mark.parametrize("kw", [dict(model="svm"), dict(model="logistic"),
-                                dict(refetch="l1"),
-                                dict(prec=TPlan("double", optimal_levels=True))])
-def test_unported_options_name_the_roadmap(synth, kw):
-    prec = kw.pop("prec", TPlan("double"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlin.train_linear(synth[1], prec, epochs=1, device="cpu", **kw)
+                                dict(model="svm", refetch="l1"),
+                                dict(bits=2, optimal_levels=True)])
+def test_formerly_unported_options_match_reference(synth, kw):
+    """The SVM, logistic regression, ℓ1 refetching and optimal sample
+    levels (formerly ROADMAP A2.2 / A2.3 raises) under 'double', one epoch
+    on synthetic100."""
+    jds_, tds_ = synth
+    plan = dict(sample_bits=kw.pop("bits", 4), optimal_levels=kw.pop("optimal_levels", False))
+    j = jlin.train_linear(jds_, JPlan("double", **plan), epochs=1, lr=0.2, **kw)
+    t = tlin.train_linear(tds_, TPlan("double", **plan), epochs=1, lr=0.2, device="cpu", **kw)
+    np.testing.assert_allclose(t.losses, j.losses, rtol=1e-4)
+    np.testing.assert_allclose(t.x, j.x, rtol=0, atol=1e-4 * np.abs(j.x).max())
+    assert t.extra == j.extra
 
 
 def test_train_linear_defaults_to_the_card(synth):

@@ -114,10 +114,37 @@ def test_layer_index_is_a_view():
 
 def test_unported_paths_name_the_roadmap():
     x = torch.randn(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tquant.encode(x, tquant.QScheme(bits=4, grid="levels", rounding="nearest"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqat.quantize_param_tree({"w": x}, bits=8, optimal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        tqat.quantize_param_tree({"w": x}, bits=8, include_embedding=True)
+
+
+def test_levels_grid_encode_matches_reference():
+    """The level grid (formerly a ROADMAP A2.3 raise): codes, decode and
+    bytes of a nearest-rounded ``grid='levels'`` QTensor."""
+    jx, tx = _x((6, 10), jnp.float32, seed=2)
+    lv = np.array([-1.5, -0.4, 0.0, 0.3, 1.2], np.float32)
+    j = jquant.encode(jx, jquant.QScheme(bits=4, grid="levels", rounding="nearest"),
+                      levels=jnp.asarray(lv))
+    t = tquant.encode(tx, tquant.QScheme(bits=4, grid="levels", rounding="nearest"),
+                      levels=torch.from_numpy(lv))
+    np.testing.assert_array_equal(t.codes.numpy(), np.asarray(j.codes))
+    np.testing.assert_array_equal(t.decode().numpy(), np.asarray(j.decode()))
+    assert t.nbytes == j.nbytes
+    with pytest.raises(ValueError, match="level table"):
+        tquant.encode(tx, tquant.QScheme(bits=4, grid="levels", rounding="nearest"))
+
+
+def test_optimal_param_tree_matches_reference():
+    """``quantize_param_tree(optimal=True)`` (formerly a ROADMAP A2.3
+    raise) on one 2-D weight: int16 codes, table, scale and bytes."""
+    w = np.random.default_rng(8).normal(0, 0.05, (48, 40)).astype(np.float32)
+    jq = jqat.quantize_param_tree({"w": jnp.asarray(w)}, bits=4, optimal=True)["w"]
+    tq = tqat.quantize_param_tree({"w": torch.from_numpy(w)}, bits=4, optimal=True)["w"]
+    assert tq.codes.dtype == torch.int16 and tq.scheme.grid == "levels"
+    np.testing.assert_array_equal(tq.codes.numpy(), np.asarray(jq.codes))
+    np.testing.assert_array_equal(tq.levels.numpy(), np.asarray(jq.levels))
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
+    assert tq.nbytes == jq.nbytes
 
 
 def test_precision_plan_legacy_kwargs_warn():

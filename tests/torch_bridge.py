@@ -14,10 +14,13 @@ from repro_torch.interop import key_from_numpy, params_from_numpy
 
 def jax_to_numpy(tree):
     """A JAX param tree as nested dicts of numpy arrays, QTensors in the
-    ``{"codes", "scale", "scheme"}`` form ``interop`` reads."""
+    ``{"codes", "scale", "scheme"[, "levels"]}`` form ``interop`` reads."""
     if isinstance(tree, JQTensor):
-        return {"codes": np.asarray(tree.codes), "scale": np.asarray(tree.scale),
-                "scheme": dataclasses.asdict(tree.scheme)}
+        out = {"codes": np.asarray(tree.codes), "scale": np.asarray(tree.scale),
+               "scheme": dataclasses.asdict(tree.scheme)}
+        if tree.levels is not None:
+            out["levels"] = np.asarray(tree.levels)
+        return out
     if isinstance(tree, dict):
         return {k: jax_to_numpy(v) for k, v in tree.items()}
     return np.asarray(tree)
