@@ -78,7 +78,24 @@ NVIDIA card.
    (logistic, SVM refetch, optimal levels: identical codes and levels,
    losses within rel 1e-4) and the reduced model served on optimal levels
    (equal tokens);
-8. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
+8. slice 6 — ``[kernel] qmm_qout``: the fused GEMM + double-sampling
+   epilogue at gemma-2b's (K, N) × M 2048 / 128 / 4 and a ragged shape
+   (int8 and int4 weights, bf16 and f32 x, 8- and 4-bit pairs), bit-exact
+   against the unfused ``qmm`` → cast → encode pipeline and within 1e-4 of
+   codes of its plain version; ``[kernel] qmm_t`` at the tied unembed's
+   shapes (M 4 and 1 against the (256000, 2048) table). ``[act-quant]``:
+   layer 0 of full-width int8 gemma-2b on one 4 × 512 batch of the training
+   stream, ``ds_project`` through its seven projections with the
+   ``qmm_qout`` and ``qmm`` counters set to 0 just before and read just
+   after (7 and 0), the pairs' range and bit-equality with the unfused
+   pipeline, 32 gate draws within 5 standard errors of y, and 5 SGD steps
+   of a full-width ``ds_mlp`` block whose loss must fall. ``[serve-embed]``:
+   the slice-1 trace on full-width gemma-2b with an 8-bit embedding table
+   (``include_embedding=True``), the ``qmm_t``, ``qmm`` and
+   ``paged_decode_attn`` counters set to 0 just before and read just after.
+   ``[check]``: the reduced model with quantized tables at 8 and 4 bits and
+   a reduced ``ds_mlp`` step, card against the CPU's plain path;
+9. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -201,6 +218,28 @@ OPTIMAL = dict(epochs=15, lr=0.3)
 # [check]: the card against the CPU's plain path on 512 cod-rna rows
 CHECK_ROWS = 512
 CHECK_LOSS_TOL = 1e-4         # rel: the CPU parity tests' tolerance (free runs: 1.5e-7)
+# qmm_qout (B7): gemma-2b's (K, N) of q/o, k/v, gate/up and down at the
+# training batch (M 2048 = 4 × 512: [act-quant]'s path), prefill (M 128) and
+# decode (M 4), plus a ragged shape; int8 and packed-int4 weights, bf16 and
+# f32 x, 8- and 4-bit pairs. Bit-exact against the unfused qmm → cast →
+# encode pipeline; against the plain version (f32 sums in another order)
+# codes may differ only where the two y differ after the cast (or the row
+# scales differ), on at most QOUT_SHARE of the elements
+QOUT_MS = (2048, 128, 4)
+QOUT_SHARE = 1e-4
+# the tied unembed: qmm_t of h (M, d_model) against the (vocab, d_model)
+# table's codes — M 4 at decode, M 1 at each prefill's readout
+UNEMBED_KN = (256000, 2048)
+# [act-quant]: one 4 × 512 batch of the training path's TokenStream through
+# layer 0 of full-width gemma-2b at int8; the 7 projections of the layer
+# through ds_project; 32 draws of the gate pair within 5 standard errors of
+# y; then 5 SGD steps of a full-width ds_mlp block (layer 0's bf16 weights,
+# tanh GELU, target roll(x, 1)). lr 0.03: on the reference, over the same
+# stream's rows (scripts/reference_ds_mlp_lr_sweep.py; ROADMAP holds the
+# sweep), 0.3 and up diverge and 0.03 falls at every step
+ACT = dict(batch=4, seq=512, draws=32, se=5.0, steps=5, lr=0.03)
+# [check]: a reduced ds_mlp step card vs CPU (f32, 64 rows, d 64, d_ff 128)
+ACT_CHECK_TOL = 1e-5          # rel to the largest gradient entry: sums reordered
 
 
 def _fail(msg: str, code: int):
@@ -1900,6 +1939,462 @@ def agree_cheb(dev):
     return out
 
 
+def _qout_weights(dev, gen, wbits, k, n):
+    import torch
+    from repro_torch.quant import QScheme, encode
+
+    w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+    return encode(w, QScheme.int_symmetric(wbits, scaling="channel", rounding="nearest",
+                                           packed=wbits == 4))
+
+
+def _qout_check(x, qt, rand, bits):
+    """One ``qmm_qout`` launch against the unfused pipeline (``qmm`` kernel
+    → cast → ``ds_row_pair_ref``: bit-exact) and the plain version (codes
+    differ only where y after the cast or the row scale differs). Returns
+    (share of codes off the plain version's, max |decoded difference|)."""
+    import torch
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import qmm_qout as QO
+    from repro_torch.kernels.ref import ds_row_pair_ref
+
+    packed, qmax, dt = qt.scheme.packed, 2 ** (bits - 1) - 1, x.dtype
+    c1, c2, sc = QO.qmm_qout(x, qt.codes, qt.scale, rand, qmax=qmax, packed=packed,
+                             out_dtype=dt)
+    y = Q.qmm(x, qt.codes, qt.scale, packed=packed).to(dt)
+    u1, u2, us = ds_row_pair_ref(y, rand, qmax=qmax)
+    if not (torch.equal(c1, u1) and torch.equal(c2, u2) and torch.equal(sc, us)):
+        raise AssertionError("qmm_qout differs from the unfused qmm → cast → encode "
+                             f"pipeline: {int((c1 != u1).sum() + (c2 != u2).sum())} codes, "
+                             f"{int((sc != us).sum())} scales")
+    p1, p2, ps = QO.qmm_qout_plain(x, qt.codes, qt.scale, rand, qmax=qmax, packed=packed,
+                                   out_dtype=dt)
+    yp = Q.qmm_plain(x, qt.codes, qt.scale, packed=packed).to(dt)
+    moved = (y != yp) | (sc != ps)
+    d1, d2 = c1 != p1, c2 != p2
+    if bool((d1 & ~moved).any()) or bool((d2 & ~moved).any()):
+        raise AssertionError("qmm_qout: codes differ from the plain version's where "
+                             "neither y nor the row scale does")
+    share = float((d1.sum() + d2.sum()).double() / (2 * c1.numel()))
+    err = float(torch.maximum((c1 * sc - p1 * ps).abs().max(),
+                              (c2 * sc - p2 * ps).abs().max()))
+    if share > QOUT_SHARE:
+        raise AssertionError(f"qmm_qout: {share:.2e} of codes differ from the plain "
+                             f"version's (limit {QOUT_SHARE:g})")
+    return share, err
+
+
+def check_qmm_qout(dev, flush):
+    """``qmm_qout`` at gemma-2b's (K, N) × M 2048 / 128 / 4 and a ragged
+    shape, int8 and int4 weights, bf16 and f32 x, 8- and 4-bit pairs: each
+    bit-exact against the unfused pipeline and within ``QOUT_SHARE`` of the
+    plain version; timed (bf16 x, 8-bit pairs) beside the plain version, the
+    bf16 ``torch.matmul`` of the same (M, K, N) (the yardstick of the
+    product; no PyTorch call computes the fused function) and the bound."""
+    import torch
+    from repro_torch.kernels import qmm_qout as QO
+
+    rows, worst = [], 0.0
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = [(m, k, n) for m in QOUT_MS for k, n in QBP_KN] + [QBP_RAGGED]
+    for wbits in (8, 4):
+        weights = {}
+        for m, k, n in shapes:
+            if (k, n) not in weights:
+                weights[(k, n)] = _qout_weights(dev, gen, wbits, k, n)
+            qt = weights[(k, n)]
+            rand = torch.randint(-2 ** 31, 2 ** 31, (m, n), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            x32 = torch.randn(m, k, generator=gen, device=dev)
+            shares, errs = {}, {}
+            for dt in (torch.bfloat16, torch.float32):
+                for bits in (8, 4):
+                    shares[(dt, bits)], errs[(dt, bits)] = _qout_check(x32.to(dt), qt,
+                                                                       rand, bits)
+                    worst = max(worst, shares[(dt, bits)])
+            x, err = x32.to(torch.bfloat16), errs[(torch.bfloat16, 8)]
+            w_bf16 = qt.decode().to(torch.bfloat16)
+            kw = dict(qmax=127, packed=qt.scheme.packed, out_dtype=torch.bfloat16)
+            iters = 10 if m * n >= 2048 * 16384 else 20
+            ms = _timed(lambda: QO.qmm_qout(x, qt.codes, qt.scale, rand, **kw), flush, iters)
+            plain_ms = _timed(lambda: QO.qmm_qout_plain(x, qt.codes, qt.scale, rand, **kw),
+                              flush, iters)
+            mm_ms = _timed(lambda: torch.matmul(x, w_bf16), flush, iters)
+            nbytes = x.numel() * 2 + qt.codes.numel() + n * 4 + rand.numel() * 4 \
+                + 2 * m * n + m * 4
+            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
+            role = {2048: "training batch", 128: "prefill", 4: "decode"}.get(m, "ragged")
+            rows.append({"name": f"qmm_qout int{wbits} M{m} K{k} N{n} bf16 x, 8-bit pair "
+                                 f"({role})", "key": (qt.scheme.packed, m, k, n),
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": None, "matmul_ms": mm_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by,
+                         "plain_code_share": {f"{str(d)[6:]} {b}-bit": v
+                                              for (d, b), v in shares.items()}})
+            print(f"[kernel] qmm_qout int{wbits} (M,K,N)=({m},{k},{n}) {role}: bit-exact vs "
+                  f"qmm → cast → encode (bf16/f32 x, 8/4-bit pairs); codes off the plain "
+                  f"version {max(shares.values()):.2e} (limit {QOUT_SHARE:g}); kernel_ms="
+                  f"{ms:.4f} plain_ms={plain_ms:.4f} bf16 matmul_ms={mm_ms:.4f} bound_ms="
+                  f"{bound_ms:.5f} ({bound_by}, {nbytes} bytes)", flush=True)
+            del rand, x32, x, w_bf16
+        del weights
+    torch.cuda.empty_cache()
+    print(f"[kernel] qmm_qout: largest share of codes off the plain version {worst:.2e}",
+          flush=True)
+    return rows
+
+
+def check_qmm_t_unembed(dev, flush):
+    """``qmm_t`` at the tied unembed's shapes — h (M, 2048) against the
+    (256000, 2048) table codes, M 4 (decode) and 1 (a prefill's readout),
+    int8 and int4, bf16 h — against its plain version (rel 1e-5 of the
+    largest output), timed beside the bf16 ``torch.matmul`` and the bound
+    (the table's code bytes at HBM bandwidth)."""
+    import torch
+    from repro_torch.kernels import qmm_t as QT
+    from repro_torch.quant import QScheme, encode
+
+    k, n = UNEMBED_KN
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for bits in (8, 4):
+        packed = bits == 4
+        w = torch.randn(k, n, generator=gen, device=dev) * n ** -0.5
+        qt = encode(w, QScheme.int_symmetric(bits, scaling="channel", rounding="nearest",
+                                             packed=packed))
+        del w
+        w_bf16 = qt.decode(torch.bfloat16)
+        for m in (SERVE["max_slots"], 1):
+            g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+            got = QT.qmm_t(g, qt.codes, qt.scale, packed=packed)
+            want = QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ref_max = float(want.abs().max())
+            if not err <= QMM_TOL * ref_max:
+                raise AssertionError(f"qmm_t unembed int{bits} M{m}: max err {err} > "
+                                     f"{QMM_TOL} x {ref_max}")
+            ms = _timed(lambda: QT.qmm_t(g, qt.codes, qt.scale, packed=packed), flush)
+            plain_ms = _timed(lambda: QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed),
+                              flush, iters=5)
+            lib_ms = _timed(lambda: torch.matmul(g, w_bf16.T), flush)
+            nbytes = g.numel() * 2 + qt.codes.numel() + n * 4 + m * k * 4
+            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n, F32_FLOPS)
+            role = "decode readout" if m > 1 else "prefill readout"
+            rows.append({"name": f"qmm_t int{bits} M{m} K{k} N{n} (tied unembed, {role})",
+                         "key": (packed, m, k, n), "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+            print(f"[kernel] qmm_t int{bits} (M,K,N)=({m},{k},{n}) tied unembed, {role}: "
+                  f"max_err={err:.3e} (tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (bf16 matmul) "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} bytes)", flush=True)
+            del g, got, want
+        del qt, w_bf16
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _layer0_inputs(params, cfg, tokens):
+    """The inputs of layer 0's seven projections for one batch, flattened to
+    (B·S, ·): the attention input (q, k, v), the attention mix (o), the MLP
+    input (gate, up) and gelu(gate)·up (down), computed through the int8
+    model's own layers (``qmm``)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import (apply_rope, dense, embed, gelu_tanh, layer_view,
+                                           rmsnorm)
+
+    spec = cfg.attn_spec
+    lay = layer_view(params["layers"], 0)
+    x0 = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
+    b, s, d = x0.shape
+    z1 = rmsnorm(lay["ln1"], x0)
+    att = lay["attn"]
+    q = dense(att["q"], z1).reshape(b, s, spec.n_heads, spec.head_dim)
+    k = dense(att["k"], z1).reshape(b, s, spec.n_kv_heads, spec.head_dim)
+    v = dense(att["v"], z1).reshape(b, s, spec.n_kv_heads, spec.head_dim)
+    pos = torch.arange(s, device=x0.device)
+    mix = A.chunked_attention(apply_rope(q, pos, spec.rope_theta),
+                              apply_rope(k, pos, spec.rope_theta), v, spec)
+    mix = mix.reshape(b, s, spec.n_heads * spec.head_dim)
+    z2 = rmsnorm(lay["ln2"], x0 + dense(att["o"], mix))
+    a = gelu_tanh(dense(lay["mlp"]["gate"], z2)) * dense(lay["mlp"]["up"], z2)
+    ins = {"q": z1, "k": z1, "v": z1, "o": mix, "gate": z2, "up": z2, "down": a}
+    ws = {**{n: att[n]["w"] for n in "qkvo"},
+          **{n: lay["mlp"][n]["w"] for n in ("gate", "up", "down")}}
+    return {n: (ins[n].reshape(b * s, -1), ws[n]) for n in ins}
+
+
+def act_quant_path(dev):
+    """Slice 6's main path: the activation channel on full-width gemma-2b at
+    int8. One 4 × 512 batch of the training path's TokenStream; the inputs
+    of layer 0's seven projections; ``ds_project`` through each, with the
+    ``qmm_qout`` and ``qmm`` counters set to 0 just before and read just
+    after (7 and 0); every pair's codes in ±127 with |c1 − c2| ≤ 1 and equal
+    to the unfused pipeline's from the same rand plane; 32 draws of the gate
+    pair within 5 standard errors of y; then 5 SGD steps of a full-width
+    ``ds_mlp`` block (layer 0's bf16 MLP weights, tanh GELU) on the
+    attention input with target ``roll(x, 1)``: the loss must fall."""
+    import torch
+    from repro_torch import configs, prng
+    from repro_torch.data.pipeline import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import qmm_qout as QO
+    from repro_torch.kernels.ref import ds_row_pair_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.precision import act_quant as AQ
+    from repro_torch.precision.qat import quantize_param_tree
+
+    cfg = configs.get_config("gemma-2b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    mlp0 = {n: {"w": params["layers"]["mlp"][n]["w"][0].clone()}
+            for n in ("gate", "up", "down")}
+    params = quantize_param_tree(params, bits=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b, s = ACT["batch"], ACT["seq"]
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                           global_batch=b))
+    tokens = torch.from_numpy(stream.next_batch()["tokens"]).to(dev)
+    with torch.no_grad():
+        ins = _layer0_inputs(params, cfg, tokens)
+    key = prng.PRNGKey(18)
+    keys = {n: prng.fold_in(key, i) for i, n in enumerate(ins)}
+    torch.cuda.synchronize()
+    QO.launches = Q.launches = 0
+    QO.shape_launches.clear()
+    t0 = time.perf_counter()
+    pairs = {n: AQ.ds_project(x, w, keys[n], bits=8) for n, (x, w) in ins.items()}
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {"qmm_qout": QO.launches, "qmm": Q.launches}
+    shapes = dict(QO.shape_launches)
+    if launches != {"qmm_qout": len(ins), "qmm": 0}:
+        raise AssertionError(f"[act-quant] launches {launches}, expected qmm_qout "
+                             f"{len(ins)} and qmm 0")
+    checks = {}
+    for n, pair in pairs.items():
+        x, w = ins[n]
+        rand = prng.bits(keys[n], (x.shape[0], w.shape[-1]), device=dev, dtype=torch.int32)
+        y = Q.qmm(x, w.codes, w.scale).to(x.dtype)
+        u1, u2, us = ds_row_pair_ref(y, rand, qmax=127)
+        equal = torch.equal(pair.codes, u1) and torch.equal(pair.codes2, u2) \
+            and torch.equal(pair.scale, us)
+        gap = int((pair.codes.int() - pair.codes2.int()).abs().max())
+        top = max(int(pair.codes.abs().max()), int(pair.codes2.abs().max()))
+        checks[n] = {"shape": list(pair.codes.shape), "unfused_equal": equal,
+                     "max_pair_gap": gap, "max_code": top}
+        if not equal or gap > 1 or top > 127:
+            raise AssertionError(f"[act-quant] {n}: {checks[n]}")
+    # unbiasedness: the mean of 32 draws of the gate pair (each draw's two
+    # planes averaged) against y, in units of its exact standard error
+    x, w = ins["gate"]
+    y = Q.qmm(x, w.codes, w.scale).to(x.dtype).to(torch.float32)
+    acc = torch.zeros_like(y)
+    for i in range(ACT["draws"]):
+        pr = AQ.ds_project(x, w, prng.fold_in(keys["gate"], 1000 + i), bits=8)
+        acc += (pr.decode() + pr.decode2()) / 2
+    sc = pr.scale
+    t = y / sc
+    p = t - torch.floor(t)
+    var = sc * sc * p * (1 - p) / (2 * ACT["draws"])
+    dev_sum = (acc / ACT["draws"] - y).double()
+    z_all = float(dev_sum.sum() / var.double().sum().sqrt())
+    z_rows = (dev_sum.sum(1) / var.double().sum(1).sqrt()).abs()
+    if not (abs(z_all) <= ACT["se"] and bool((z_rows <= ACT["se"]).all())):
+        raise AssertionError(f"[act-quant] mean of {ACT['draws']} gate draws off y by "
+                             f"{z_all:.2f} standard errors (rows max {float(z_rows.max()):.2f})")
+    del pairs, acc, y, t, p, var, dev_sum
+    Q.launches = QO.launches = 0
+    # a full-width ds_mlp block: 5 plain SGD steps on layer 0's bf16 weights
+    xm = ins["q"][0]
+    target = torch.roll(xm, 1, dims=1).to(torch.float32)
+    del params, ins
+    torch.cuda.empty_cache()
+
+    def loss_of(p, k):
+        y = AQ.ds_mlp(p, xm, k, act=cfg.mlp_act, bits=8)
+        return torch.mean((y.to(torch.float32) - target) ** 2)
+
+    losses, step_ms = [], []
+    p = mlp0
+    for i in range(ACT["steps"]):
+        pp = {n: {"w": v["w"].clone().requires_grad_()} for n, v in p.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_of(pp, prng.fold_in(key, 100 + i))
+        loss.backward()
+        p = {n: {"w": (v["w"] - ACT["lr"] * v["w"].grad).detach().to(torch.bfloat16)}
+             for n, v in pp.items()}
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+    with torch.no_grad():
+        losses.append(float(loss_of(p, prng.fold_in(key, 100 + ACT["steps"]))))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[act-quant] ds_mlp losses do not fall: {losses}")
+    out = {"tokens": [b, s], "setup_s": setup_s, "ds_project_s": path_s,
+           "launches": launches, "shape_launches": [[*k_, v] for k_, v in shapes.items()],
+           "pairs": checks, "draws": ACT["draws"], "draws_mean_z_all": z_all,
+           "draws_mean_z_rows_max": float(z_rows.max()), "ds_mlp_lr": ACT["lr"],
+           "ds_mlp_losses": losses, "ds_mlp_step_ms": step_ms}
+    print(f"[act-quant] gemma-2b full width int8, layer 0, {b} x {s} tokens of the training "
+          f"stream: ds_project through q, k, v, o, gate, up, down in {path_s:.3f} s; "
+          f"launches {launches}; every pair in ±127, |c1 − c2| ≤ 1, equal to qmm → cast → "
+          f"encode; {ACT['draws']} gate draws' mean off y by {z_all:.2f} standard errors "
+          f"(rows max {float(z_rows.max()):.2f}; limit {ACT['se']}); ds_mlp lr {ACT['lr']} "
+          f"losses {[round(v, 6) for v in losses]}, ms per step "
+          f"{[round(v, 1) for v in step_ms]}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_embed(dev, slice1):
+    """Full-width gemma-2b with 8-bit weights and an 8-bit embedding table
+    (``quantize_param_tree(..., include_embedding=True)``), kv 8, built into
+    a ``ServeEngine`` directly, on the slice-1 trace: ``embed`` gathers code
+    rows, every readout streams the table through ``qmm_t``. Counters set
+    to 0 just before and read just after: ``qmm_t`` one launch per prefill
+    and per decode step, ``qmm`` and ``paged_decode_attn`` as in slice 1."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import qmm_t as QT
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    plan = PrecisionPlan(model_bits=8, kv_bits=8, model_storage="int")
+    cfg = configs.get_config("gemma-2b", precision=plan)
+    params = quantize_param_tree(T.init_params(cfg, seed=0, device=dev), bits=8,
+                                 include_embedding=True)
+    table = params["embed"]["table"]
+    table_bytes = table.codes.numel() * table.codes.element_size()
+    engine = ServeEngine(params, cfg, plan=plan, max_slots=SERVE["max_slots"],
+                         page_size=SERVE["page_size"],
+                         max_seq_len=SERVE["max_prompt"] + SERVE["max_new"] + SERVE["page_size"],
+                         backend="cuda", device=dev)
+    del params
+    trace = make_trace(SERVE["n_requests"], cfg.vocab_size, max_new=SERVE["max_new"],
+                       max_prompt=SERVE["max_prompt"], seed=0)
+    Q.launches = QT.launches = PA.launches = 0
+    Q.shape_launches.clear()
+    QT.shape_launches.clear()
+    t0 = time.perf_counter()
+    results = engine.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"qmm_t": QT.launches, "qmm": Q.launches, "paged_decode_attn": PA.launches}
+    qt_shapes = dict(QT.shape_launches)
+    n_gen = _check_served(engine, results, engine.cfg)
+    st, L = engine.stats, cfg.n_layers
+    want = {"qmm_t": st["admitted"] + st["decode_steps"],
+            "qmm": 7 * L * (st["admitted"] + st["decode_steps"]),
+            "paged_decode_attn": L * st["decode_steps"]}
+    if launches != want or not launches["qmm_t"]:
+        raise AssertionError(f"[serve-embed] launches {launches}, expected {want}")
+    base = slice1[2]
+    out = {"weight_bits": 8, "kv_bits": 8, "table_code_bytes": table_bytes,
+           "tokens_generated": n_gen, "decode_steps": st["decode_steps"],
+           "prefill_tokens": st["prefill_tokens"],
+           "decode_tokens_per_s": engine.throughput(),
+           "mean_decode_step_ms": 1e3 * statistics.mean(engine.decode_times),
+           "weight_bytes": engine.weight_nbytes(), "wall_s": wall, "launches": launches,
+           "qmm_t_shape_launches": [[*k, v] for k, v in qt_shapes.items()],
+           "slice1_8_8": {"decode_tokens_per_s": base["decode_tokens_per_s"],
+                          "mean_decode_step_ms": base["mean_decode_step_ms"],
+                          "weight_bytes": base["weight_bytes"]}}
+    print(f"[serve-embed] gemma-2b full width, 8-bit weights and 8-bit embedding table "
+          f"({table_bytes:,} code bytes), kv 8: {len(results)} requests finished, {n_gen} "
+          f"tokens in {st['decode_steps']} decode steps (+{st['prefill_tokens']} prefill "
+          f"tokens); steady-state decode {out['decode_tokens_per_s']:.1f} tok/s "
+          f"({out['mean_decode_step_ms']:.2f} ms/step) against slice 1's 8/8 "
+          f"{base['decode_tokens_per_s']:.1f} tok/s ({base['mean_decode_step_ms']:.2f} "
+          f"ms/step) in this run; weights {out['weight_bytes']:,} bytes (slice 1: "
+          f"{base['weight_bytes']:,}); launches {launches}; qmm_t shapes {qt_shapes}",
+          flush=True)
+    out["profile"] = profile_decode(engine)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def agree_embed_act(dev):
+    """The reduced gemma-2b at f32 with quantized embedding tables at 8 and
+    4 bits served on the card and on the CPU's plain path: equal tokens;
+    then one reduced ``ds_mlp`` step (f32, 64 rows, d 64, d_ff 128) on both:
+    every activation code plane equal, gradients within ``ACT_CHECK_TOL``
+    of the largest entry."""
+    import torch
+    from repro_torch import configs, prng
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.precision import act_quant as AQ
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for bits in (8, 4):
+        plan = PrecisionPlan(model_bits=bits, kv_bits=bits, model_storage="int")
+        cfg = configs.get_reduced("gemma-2b", dtype=torch.float32, precision=plan)
+        params = quantize_param_tree(T.init_params(cfg, seed=0, device="cpu"), bits=bits,
+                                     include_embedding=True)
+        toks = {}
+        for label, where in (("card", dev), ("cpu", "cpu")):
+            eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                              backend="cuda", device=where)
+            res = eng.run(make_trace(8, cfg.vocab_size, max_new=16, max_prompt=32, seed=0))
+            toks[label] = {r: f.tokens.tolist() for r, f in res.items()}
+        same = sum(int(toks["card"][r] == toks["cpu"][r]) for r in toks["cpu"])
+        print(f"[check] reduced gemma-2b f32 int{bits} weights and int{bits} embedding table: "
+              f"card vs CPU plain path — whole sequences equal {same}/8", flush=True)
+        if same != 8:
+            raise AssertionError(f"[check] quantized-table serving int{bits}: {same}/8 equal")
+        out[f"embed_int{bits}_sequences_equal"] = same
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(0, 1, (64, 64)).astype(np.float32))
+    p = {n: {"w": torch.from_numpy((rng.normal(0, 1, shp) * 0.2).astype(np.float32))}
+         for n, shp in (("gate", (64, 128)), ("up", (64, 128)), ("down", (128, 64)))}
+    pair = AQ.ds_pair
+    rec = {}
+    for label, where in (("card", dev), ("cpu", "cpu")):
+        seen = rec[label] = []
+
+        def pair_rec(*a, **k):
+            qt = pair(*a, **k)
+            seen.extend([qt.codes.cpu(), qt.codes2.cpu()])
+            return qt
+
+        pp = {n: {"w": v["w"].to(where).requires_grad_()} for n, v in p.items()}
+        xw = x.to(where)
+        AQ.ds_pair = pair_rec
+        try:
+            loss = torch.mean((AQ.ds_mlp(pp, xw, prng.PRNGKey(7), act="gelu")
+                               - torch.roll(xw, 1, dims=1)) ** 2)
+            loss.backward()
+        finally:
+            AQ.ds_pair = pair
+        seen.append((loss.item(), {n: v["w"].grad.cpu() for n, v in pp.items()}))
+    (lc, gc), (lp, gp) = rec["card"].pop(), rec["cpu"].pop()
+    same = sum(int(torch.equal(a, b)) for a, b in zip(rec["card"], rec["cpu"]))
+    rel = max(float((gc[n] - gp[n]).abs().max() / gp[n].abs().max()) for n in gp)
+    print(f"[check] reduced ds_mlp step f32: activation code planes equal {same}/"
+          f"{len(rec['cpu'])} (card vs CPU plain path); loss {lc:.7f} vs {lp:.7f}; gradients "
+          f"max rel diff {rel:.2e} (tol {ACT_CHECK_TOL:g})", flush=True)
+    if same != len(rec["cpu"]) or len(rec["card"]) != len(rec["cpu"]) or rel > ACT_CHECK_TOL:
+        raise AssertionError(f"[check] ds_mlp: {same}/{len(rec['cpu'])} planes equal, "
+                             f"gradients rel {rel}")
+    out["ds_mlp"] = {"planes_equal": same, "planes": len(rec["cpu"]), "loss_card": lc,
+                     "loss_cpu": lp, "grad_max_rel_diff": rel}
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -1956,6 +2451,8 @@ def main():
     qbp_rows = phase("kernel qmm_bitplane", check_qmm_bitplane, dev, flush)
     absmax_rows = phase("kernel row_absmax", check_row_absmax, dev, flush)
     sq_rows = phase("kernel stoch_quant", check_stoch_quant, dev, flush)
+    qout_rows = phase("kernel qmm_qout", check_qmm_qout, dev, flush)
+    unembed_rows = phase("kernel qmm_t unembed", check_qmm_t_unembed, dev, flush)
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -1976,6 +2473,9 @@ def main():
     optimal = phase("optimal", optimal_path, dev)
     serve_opt = phase("serve-optimal", serve_optimal, dev)
     cheb_small = phase("check cheb and optimal", agree_cheb, dev)
+    act = phase("act-quant", act_quant_path, dev)
+    embed_run = phase("serve-embed", serve_embed, dev, runs[8])
+    embed_small = phase("check embed and act-quant", agree_embed_act, dev)
 
     kernels = []
     all8 = {name: {tuple(k[:-1]): k[-1] for k in rows} for name, rows in
@@ -2060,8 +2560,29 @@ def main():
             kernels.append({"name": r.pop("name"), "route": "cuda",
                             "source": "src/repro_torch/kernels/csrc/stoch_quant.cu",
                             "replaces": f"src/repro/kernels/stoch_quant.py:{line}", **r})
+    # qmm_qout launches on [act-quant]'s path and qmm_t's at the tied
+    # unembed on [serve-embed]'s: the wrappers' (packed, M, K, N) counters,
+    # reset just before each run; every launched shape must have been checked
+    act_path = {tuple(k[:-1]): k[-1] for k in act["shape_launches"]}
+    unembed_path = {tuple(k[:-1]): k[-1] for k in embed_run["qmm_t_shape_launches"]}
+    unchecked = (set(act_path) - {r["key"] for r in qout_rows}) | \
+        (set(unembed_path) - {r["key"] for r in unembed_rows})
+    if unchecked:
+        raise AssertionError(f"qmm_qout / qmm_t launched at unchecked shapes {sorted(unchecked)}")
+    for r in qout_rows:
+        r["launches"] = act_path.get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm_qout.cu",
+                        "replaces": "src/repro/kernels/qmm.py:284", **r})
+    for r in unembed_rows:
+        r["launches"] = unembed_path.get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm_t.cu",
+                        "replaces": "src/repro/kernels/qmm.py:199", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = {r["name"]: {k: r[k] for k in ("matmul_ms", "plain_code_share")}
+             for r in kernels if "matmul_ms" in r}
     kernels = [{k: r[k] for k in keys} for r in kernels]
 
     out_dir = ROOT / "build"
@@ -2074,7 +2595,8 @@ def main():
               "serve_bitplane": bitplane, "spec": spec,
               "bitplane_agreement": bitplane_small, "quantize_rows": qrows, "cheb": cheb,
               "optimal": optimal, "serve_optimal": serve_opt, "cheb_agreement": cheb_small,
-              "phase_seconds": phase_s}
+              "qmm_qout_extra": extra, "act_quant": act, "serve_embed": embed_run,
+              "embed_act_agreement": embed_small, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface, so it compiles with
 ``nvcc`` alone (no PyTorch headers: seconds, not minutes) into its own
-shared library, loaded with :mod:`ctypes`. All sources build together —
+shared library, loaded with :mod:`ctypes` (a ``csrc/*.cuh`` header holds
+code that two sources share). All sources build together —
 one ``nvcc`` process per source, started at once — the first time any
 kernel is launched, into ``build/repro_torch_kernels/`` at the repository
 root (``$REPRO_TORCH_BUILD_DIR`` overrides it). Libraries are keyed by a
@@ -53,7 +54,10 @@ def sources() -> dict[str, Path]:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library path of ``src``, keyed by its bytes, the shared headers'
+    (``csrc/*.cuh``) and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

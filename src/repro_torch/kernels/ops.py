@@ -1,8 +1,8 @@
 """Public wrappers around the kernels (port of ``repro.kernels.ops`` for
 ``quant_dense_apply``, ``paged_attention``, ``quantize_rows``,
 ``dequantize_rows``, ``ds_quantize``, ``int8_matvec``,
-``ds_gradient_from_codes``, ``quant_adamw_update`` and
-``quant_dense_bitplane``).
+``ds_gradient_from_codes``, ``quant_adamw_update``, ``quant_dense_bitplane``
+and ``quant_dense_out_q``).
 
 Unlike the TPU wrappers nothing is padded to 128: the CUDA kernels mask
 ragged edges themselves.
@@ -16,6 +16,7 @@ from repro_torch import prng
 from . import paged_attn as pa_mod
 from . import qmm as qmm_mod
 from . import qmm_bitplane as qbp_mod
+from . import qmm_qout as qout_mod
 from . import qmm_t as qmm_t_mod
 from . import qmv as qmv_mod
 from . import quant_adamw as qa_mod
@@ -51,6 +52,19 @@ def quant_dense_bitplane(x: torch.Tensor, codes: torch.Tensor,
     y = qbp_mod.qmm_bitplane(x.reshape(-1, x.shape[-1]), codes,
                              scale.reshape(1, n_out))
     return y.reshape(*lead, n_out)
+
+
+def quant_dense_out_q(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                      rand: torch.Tensor, *, qmax: int, packed: bool = False,
+                      out_dtype=torch.bfloat16):
+    """Fused GEMM + double-sampled row quantization of the output
+    (``qmm_qout``). x: (M, K); codes (K, N) int8 or (K, N/2) packed uint8;
+    scale (1, N); rand (M, N) uint32 words (as int32). Returns (codes1,
+    codes2 (M, N) int8, row scales (M, 1) f32). M and K may be ragged (the
+    kernel masks them); N is the true output width, since the row absmax
+    must see nothing but real columns."""
+    return qout_mod.qmm_qout(x, codes, scale, rand, qmax=qmax, packed=packed,
+                             out_dtype=out_dtype)
 
 
 def kv_bits_of(pages: torch.Tensor) -> int:

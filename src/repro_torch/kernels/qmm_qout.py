@@ -1,0 +1,101 @@
+"""qmm_qout — the dequantize-matmul with a fused double-sampling epilogue
+(port of ``repro.kernels.qmm.qmm_qout``; the CUDA source is
+``csrc/qmm_qout.cu``).
+
+``qmm_qout(x, codes, scale, rand, qmax=...)`` = the §2.2 row-scaled pair
+(codes1, codes2 int8 (M, N), row scales (M, 1) f32) of
+y = x (M, K) · (codes ⊙ scale) rounded to ``out_dtype``, both planes drawn
+from the high and low 16 bits of one uint32 ``rand`` word per element. On a
+CUDA tensor it launches the hand-written kernel or raises; on a CPU tensor
+it computes :func:`qmm_qout_plain`, the kernel's oracle. The kernel's
+product is ``qmm``'s own (the same split-K blocks and order), so its output
+equals ``qmm`` → cast → :func:`~repro_torch.kernels.ref.ds_row_pair_ref`
+bit for bit.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from . import _build
+from .qmm import split_k
+from .ref import qmm_qout_ref
+
+launches = 0          # kernel launches made by qmm_qout() (plain calls excluded)
+shape_launches: collections.Counter = collections.Counter()  # (packed, M, K, N) → launches
+
+qmm_qout_plain = qmm_qout_ref
+
+_OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _lib():
+    lib = _build.load("qmm_qout")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.qmm_qout_launch.argtypes = [p, i, p, i, p, p, p, p, p, p,
+                                        i, i, i, i, i, i, p]
+        lib.qmm_qout_launch.restype = i
+        lib.qmm_qout_error_string.argtypes = [i]
+        lib.qmm_qout_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def qmm_qout(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+             rand: torch.Tensor, *, qmax: int, packed: bool = False,
+             out_dtype=torch.bfloat16):
+    """x (M, K) bf16/f32 · codes (K, N) int8 [or (K, N/2) packed uint8]
+    with scale (1, N) or (N,) f32, rand (M, N) int32 (uint32 bit patterns)
+    → (codes1, codes2 (M, N) int8, row scales (M, 1) f32)."""
+    global launches
+    if not x.is_cuda:
+        return qmm_qout_plain(x, codes, scale, rand, qmax=qmax, packed=packed,
+                              out_dtype=out_dtype)
+    m, k = x.shape
+    k2, nb = codes.shape
+    n = nb * 2 if packed else nb
+    if k != k2:
+        raise ValueError(f"qmm_qout: x {tuple(x.shape)} vs codes {tuple(codes.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qmm_qout: x must be bf16 or f32, got {x.dtype}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"qmm_qout: out_dtype must be bf16 or f32, got {out_dtype}")
+    want = torch.uint8 if packed else torch.int8
+    if codes.dtype != want:
+        raise TypeError(f"qmm_qout: codes must be {want}, got {codes.dtype}")
+    if rand.dtype not in (torch.int32, torch.uint32) or tuple(rand.shape) != (m, n):
+        raise ValueError(f"qmm_qout: rand must be ({m}, {n}) 32-bit words, got "
+                         f"{rand.dtype}{list(rand.shape)}")
+    if not 1 <= qmax <= 127:
+        raise ValueError(f"qmm_qout: qmax must be in 1..127 for int8 codes, got {qmax}")
+    if not (codes.is_cuda and scale.is_cuda and rand.is_cuda):
+        raise ValueError("qmm_qout: x, codes, scale and rand must all be on the card")
+    scale = scale.reshape(-1).to(torch.float32).contiguous()
+    if scale.numel() != n:
+        raise ValueError(f"qmm_qout: scale has {scale.numel()} entries, need {n}")
+    x = x.contiguous()
+    rand = rand.contiguous()
+    codes = codes.contiguous()
+    if codes.data_ptr() % 4:
+        codes = codes.clone()             # 32-bit code loads need alignment
+    splits = split_k(m, k, n, packed)
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    c1 = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    c2 = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    oscale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    err = lib.qmm_qout_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), int(packed),
+        scale.data_ptr(), rand.data_ptr(), part.data_ptr(), c1.data_ptr(),
+        c2.data_ptr(), oscale.data_ptr(), m, k, n, splits, int(qmax),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"qmm_qout kernel launch failed: "
+                           f"{lib.qmm_qout_error_string(err).decode()}")
+    launches += 1
+    shape_launches[(packed, m, k, n)] += 1
+    return c1, c2, oscale

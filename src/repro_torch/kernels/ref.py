@@ -4,13 +4,46 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant.qtensor import decode_bitplanes, unpack_int4
+from repro_torch.quant.qtensor import decode_bitplanes, div_exact, unpack_int4
 
 
 def qmm_ref(x, codes, scale):
     """The f32-dequant oracle: x · (codes ⊙ scale), all in f32."""
     w = codes.to(torch.float32) * scale.to(torch.float32)
     return x.to(torch.float32) @ w
+
+
+def ds_row_pair_ref(y, rand, *, qmax: int):
+    """The §2.2 row-scaled double-sampling pair of y (M, N) on the int grid,
+    both planes from one ``rand`` word per element (the epilogue of the
+    reference's ``_qmm_qout_kernel``): scale = absmax/qmax per row (1 where
+    the absmax is 0), t = y/scale, codeᵢ = clip(⌊t⌋ + [uᵢ < t − ⌊t⌋], ±qmax)
+    with u1/u2 the high/low 16 bits · 2⁻¹⁶ (int32 patterns widened before
+    shifting, ROADMAP C3), every division IEEE (C17); NaN → 0. Returns
+    (codes1, codes2, scale (M, 1))."""
+    y32 = y.to(torch.float32)
+    absmax = torch.amax(y32.abs(), dim=1, keepdim=True)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), div_exact(absmax, qmax))
+    t = y32 / scale
+    base = torch.floor(t)
+    frac = t - base
+    r = rand.to(torch.int64) & 0xFFFFFFFF
+    u1 = (r >> 16).to(torch.float32) * (1.0 / (1 << 16))
+    u2 = (r & 0xFFFF).to(torch.float32) * (1.0 / (1 << 16))
+    c1 = torch.clamp(base + (u1 < frac).to(torch.float32), -qmax, qmax)
+    c2 = torch.clamp(base + (u2 < frac).to(torch.float32), -qmax, qmax)
+    return _nan_to_zero_int8(c1), _nan_to_zero_int8(c2), scale
+
+
+def qmm_qout_ref(x, codes, scale, rand, *, qmax: int, packed: bool = False,
+                 out_dtype=torch.bfloat16):
+    """The plain ``qmm_qout``: f32 dequant and f32 accumulation of
+    x (M, K) · (codes ⊙ scale), the product rounded to ``out_dtype``, then
+    :func:`ds_row_pair_ref` on one uint32 ``rand`` plane (M, N). Returns
+    (codes1, codes2 int8 (M, N), row scales (M, 1) f32)."""
+    c = unpack_int4(codes) if packed else codes.to(torch.float32)
+    y = x.to(torch.float32) @ (c * scale.to(torch.float32).reshape(1, -1))
+    return ds_row_pair_ref(y.to(out_dtype), rand, qmax=qmax)
 
 
 def qmm_t_ref(g, codes, scale, *, packed: bool = False):

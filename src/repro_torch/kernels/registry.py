@@ -10,8 +10,9 @@ Two backends:
   quantized AdamW update decodes, updates and re-encodes each moment with
   its own key.
 * ``cuda`` — the hand-written Hopper kernels (``csrc/qmm.cu``,
-  ``csrc/qmm_t.cu``, ``csrc/qmm_bitplane.cu``, ``csrc/paged_attn.cu``,
-  ``csrc/ds_quant.cu``, ``csrc/qmv.cu``, ``csrc/quant_adamw.cu``; level-table
+  ``csrc/qmm_t.cu``, ``csrc/qmm_qout.cu``, ``csrc/qmm_bitplane.cu``,
+  ``csrc/paged_attn.cu``, ``csrc/ds_quant.cu``, ``csrc/qmv.cu``,
+  ``csrc/quant_adamw.cu``; level-table
   weights take the reference's decode fallback, as no kernel of the
   reference streams them). Given CUDA
   tensors it launches them or raises — it never hands work to a plain
@@ -68,6 +69,21 @@ class KernelBackend:
         else:
             w = qt.decode(torch.bfloat16)
         return mm_f32(x, w.t() if transpose else w)
+
+    def quant_dense_out_q(self, x, qt, key, *, bits: int = 8, out_dtype=None):
+        """``quant_dense`` with a quantize epilogue: the §2.2 double-sampled
+        row-scaled int-grid pair of the output as one QTensor (codes,
+        codes2, (…, 1) row scales) instead of the dense y. The base
+        implementation is this backend's ``quant_dense`` → cast to the
+        activation dtype → two independent draws from the split key
+        (``ds_pair_plain``), the reference's unfused numerics."""
+        from repro_torch.quant import QScheme
+        from repro_torch.quant.qtensor import ds_pair_plain
+
+        dtype = out_dtype or (x.dtype if x.is_floating_point() else torch.float32)
+        y = self.quant_dense(x, qt).to(dtype)
+        return ds_pair_plain(y, QScheme.int_symmetric(bits, scaling="row", rounding="ds"),
+                             key)
 
     def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
                         block_table, seq_lens, *, softmax_scale):
@@ -160,33 +176,80 @@ class _CudaBackend(KernelBackend):
 
     def quant_dense(self, x, qt, *, transpose: bool = False):
         """Stream the code plane through ``qmm`` (or ``qmm_t`` for x · Wᵀ,
-        the code-domain backward), bitplane words through
-        ``qmm_bitplane``. A level-table weight takes the reference's decode
-        fallback — look the codes up, then one matmul — as the reference's
-        ``pallas`` backend does: no kernel of the reference streams it."""
-        sch = qt.scheme
-        if sch.layout == "bitplane":
+        the code-domain backward and the tied unembed), bitplane words
+        through ``qmm_bitplane``. A weight without a kernel plan
+        (:meth:`_qd_plan`: a level table, wide codes, per-row scales) takes
+        the reference's decode fallback — decode, then one matmul — as the
+        reference's ``pallas`` backend does."""
+        if qt.scheme.layout == "bitplane":
             return self._quant_dense_bitplane(x, qt, transpose)
-        if sch.grid == "levels":
-            return KernelBackend.quant_dense(self, x, qt, transpose=transpose)
-        if sch.grid != "int" or qt.ndim != 2:
+        if qt.ndim != 2:
             raise NotImplementedError(
-                f"cuda quant_dense takes 2-D int-grid weights, got {qt!r} "
+                f"cuda quant_dense takes 2-D weights, got {qt!r} "
                 "(stacked experts: ROADMAP A6)")
-        packed = bool(sch.packed)
-        if qt.codes.dtype != (torch.uint8 if packed else torch.int8):
-            raise NotImplementedError(f"cuda quant_dense: codes of {qt.codes.dtype}")
-        n = qt.codes.shape[-1] * (2 if packed else 1)
-        scale = qt.scale.to(torch.float32)
-        if scale.numel() == 1:
-            scale = scale.reshape(1, 1).expand(1, n)
-        elif scale.numel() != n:
-            raise NotImplementedError(
-                f"cuda quant_dense needs per-column scales, got {tuple(scale.shape)}")
+        plan = self._qd_plan(qt)
+        if plan is None:
+            return KernelBackend.quant_dense(self, x, qt, transpose=transpose)
         from . import ops
 
-        return ops.quant_dense_apply(x, qt.codes, scale.reshape(1, n), packed=packed,
-                                     transpose=transpose)
+        codes, scale, packed = plan
+        return ops.quant_dense_apply(x, codes, scale, packed=packed, transpose=transpose)
+
+    @staticmethod
+    def _qd_plan(qt):
+        """Kernel-ready (codes, scale (1, N) f32, packed) of a 2-D int or
+        zipml weight, or None where the reference's ``pallas`` backend takes
+        the decode fallback: level tables, codes of another dtype, scales
+        that are neither scalar nor per column (``registry._qd_plan``)."""
+        sch = qt.scheme
+        if sch.grid == "levels" or sch.layout == "bitplane" or qt.ndim != 2:
+            return None
+        packed = bool(sch.packed)
+        if qt.codes.dtype != (torch.uint8 if packed else torch.int8):
+            return None
+        n = qt.codes.shape[-1] * (2 if packed else 1)
+        scale = qt.scale.to(torch.float32)
+        if tuple(scale.shape) in ((), (1,), (1, 1)):
+            scale = scale.reshape(1, 1).expand(1, n)
+        elif tuple(scale.shape) in ((n,), (1, n)):
+            scale = scale.reshape(1, n)
+        else:
+            return None
+        if sch.grid == "zipml":
+            from repro_torch.quant.qtensor import div_exact
+
+            scale = div_exact(scale, sch.s)
+        return qt.codes, scale, packed
+
+    def quant_dense_out_q(self, x, qt, key, *, bits: int = 8, out_dtype=None):
+        """The fused epilogue (``qmm_qout``): both code planes of the
+        output's §2.2 row-scaled pair come from one ``jax.random.bits(key,
+        (M, N), uint32)``-exact plane, its high and low 16 bits — the
+        reference ``pallas`` backend's draw, a different stream from
+        ``ref``'s split-key pair. The weights the reference sends to its
+        base path go there here too, and only those: no kernel plan (which
+        takes in ``ndim != 2``) or ``bits > 8``."""
+        plan = self._qd_plan(qt)
+        if plan is None or bits > 8:
+            return KernelBackend.quant_dense_out_q(self, x, qt, key, bits=bits,
+                                                   out_dtype=out_dtype)
+        from repro_torch import prng
+        from repro_torch.quant import QScheme, QTensor
+
+        from . import ops
+
+        codes, scale, packed = plan
+        dtype = out_dtype or (x.dtype if x.is_floating_point() else torch.float32)
+        lead = x.shape[:-1]
+        n = codes.shape[-1] * (2 if packed else 1)
+        x2 = x.reshape(-1, x.shape[-1])
+        rand = prng.bits(key, (x2.shape[0], n), device=x.device, dtype=torch.int32)
+        c1, c2, oscale = ops.quant_dense_out_q(x2, codes, scale, rand,
+                                               qmax=2 ** (bits - 1) - 1,
+                                               packed=packed, out_dtype=dtype)
+        scheme = QScheme.int_symmetric(bits, scaling="row", rounding="ds")
+        return QTensor(c1.reshape(*lead, n), oscale.reshape(*lead, 1), scheme,
+                       codes2=c2.reshape(*lead, n))
 
     @staticmethod
     def _bitplane_scale(qt):

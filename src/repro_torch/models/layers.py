@@ -73,19 +73,52 @@ def init_embedding(gen, vocab: int, d_model: int, *, dtype=torch.bfloat16,
             * d_model ** -0.5}
 
 
-def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
+def embed(p: Params, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Rows of the embedding table at ``ids``. A QTensor table gathers its
+    code rows first and decodes only those (decoding the whole (V, d) table
+    per step would build a bf16 vocab table to read a few rows); it decodes
+    the whole table first only where the scale or the level table carries
+    the vocab dimension, as the reference does.
+
+    ``dtype`` is the caller's compute dtype. A QTensor decodes to bf16, as
+    the reference does, except for an int-grid table read at f32: there the
+    reference's jitted programs keep codes · bf16(scale) in f32 and drop the
+    product's bf16 rounding (ROADMAP C4), so the port returns that exact
+    product (whose bf16 rounding is the bf16 decode)."""
     table = p["table"]
-    if isinstance(table, QTensor):
-        raise NotImplementedError("quantized embedding tables (ROADMAP A5)")
-    return table[ids.to(torch.int64)]
+    idx = ids.to(torch.int64)
+    if not isinstance(table, QTensor):
+        return table[idx]
+    if table.scheme.layout == "bitplane":
+        raise ValueError(
+            "embed of a bitplane table: the reference gathers the ids along "
+            "the plane axis of the (P, V, W) words and returns the wrong "
+            "shape (ROADMAP C16); serve bitplane weights with a dense or int "
+            "table")
+    vdim = table.shape[0]
+    scale_rowed = table.scale.ndim > 0 and table.scale.shape[0] == vdim
+    levels_rowed = table.levels is not None and table.levels.ndim > 1
+    if scale_rowed or levels_rowed:
+        return _decode_table(table, dtype)[idx]
+    return _decode_table(QTensor(table.codes[idx], table.scale, table.scheme,
+                                 levels=table.levels), dtype)
+
+
+def _decode_table(qt: QTensor, dtype) -> torch.Tensor:
+    """A table (or its gathered rows) decoded for a caller at ``dtype``."""
+    if dtype == torch.float32 and qt.scheme.grid == "int":
+        return QTensor(qt.codes, qt.scale.to(torch.bfloat16), qt.scheme).decode()
+    return qt.decode(torch.bfloat16)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied readout: logits = x · tableᵀ in f32 (a plain product, as the
-    reference leaves it to XLA)."""
+    """Tied readout: logits = x · tableᵀ in f32. A QTensor or ShipWeight
+    table streams its codes through the transposed product of
+    ``quant_dense`` (``qmm_t`` on the card); a dense one is a plain
+    product, as the reference leaves it to XLA."""
     table = p["table"]
     if isinstance(table, (QTensor, ShipWeight)):
-        raise NotImplementedError("quantized tied unembed (include_embedding, ROADMAP A5)")
+        return quant_dense(x, table, transpose=True)
     return mm_f32(x, table.t())
 
 

@@ -127,8 +127,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
         raise NotImplementedError(
             "act_bits: the reference does not wire act_bits into its model "
             "(a plan with it trains as one without it); the port raises "
-            "rather than ignore a requested channel (ROADMAP C9, A5)")
-    x = embed(params["embed"], tokens).to(cfg.dtype)
+            "rather than ignore a requested channel (ROADMAP C9; the "
+            "activation channel itself is precision.act_quant)")
+    x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
     for layer in unstack_layers(params["layers"], cfg.n_layers):
         if cfg.remat:
             x = checkpoint(_layer_fwd, cfg, layer, x, use_reentrant=False)
@@ -173,7 +174,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             "prefill fills raw K/V only (kv_bits=0); the paged pool "
             "quantizes them (ring-cache prefill: ROADMAP A6)")
     layers = layers if layers is not None else layer_views(params, cfg)
-    x = embed(params["embed"], tokens).to(cfg.dtype)
+    x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
     ks, vs = [], []
     for layer in layers:
         a_out, (k, v) = attn.attention_block(

@@ -5,7 +5,9 @@
   :class:`~repro_torch.quant.QTensor` of int codes with per-out-channel f32
   scales (reduced over d_in, axis −2 — stacked (L, K, N) weights get
   (L, 1, N) scales). 4-bit codes pack two nibbles per byte whenever the
-  out-channel dim is even. Embedding tables stay unquantized.
+  out-channel dim is even. ``include_embedding`` quantizes the embedding
+  tables (``table`` leaves) too: ``embed`` then gathers code rows and the
+  tied unembed streams the codes through ``qmm_t``.
 * :func:`ship_quant_tree` — quantize-on-gather for training: each large
   weight becomes a :class:`~repro_torch.quant.ShipWeight` (nearest-rounded
   codes for the matmul + the master for the straight-through gradient).
@@ -18,7 +20,8 @@ bit-serially (:meth:`~repro_torch.quant.QScheme.bitplane`): one artifact
 serves any precision 1..bits through ``QTensor.slice_planes``.
 ``optimal=True`` snaps each weight onto its variance-optimal symmetric level
 set (§3.3's Optimal5), a ``grid='levels'`` QTensor with int16 codes and its
-level table. ``include_embedding`` waits for ROADMAP A5.
+level table; an embedding table keeps the int scheme there, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -32,7 +35,11 @@ from repro_torch.quant import QScheme, QTensor, ShipWeight, encode
 def _is_weight(key: str, leaf) -> bool:
     """Matmul weights only: 2-D+ leaves named ``w`` (embedding tables stay
     unquantized)."""
-    return key == "w" and not isinstance(leaf, (QTensor, ShipWeight)) and leaf.ndim >= 2
+    return key == "w" and _is_dense(leaf)
+
+
+def _is_dense(leaf) -> bool:
+    return not isinstance(leaf, (QTensor, ShipWeight)) and leaf.ndim >= 2
 
 
 def _weight_scheme(bits: int, rounding: str = "nearest", packed: bool = False) -> QScheme:
@@ -46,16 +53,22 @@ def _auto_packed(bits: int, w: torch.Tensor, packed: bool | None) -> bool:
     return bits == 4 and w.shape[-1] % 2 == 0
 
 
-def _map_weights(params, fn):
+def _map_weights(params, fn, table_fn=None):
     """``fn(leaf)`` on every matmul weight, in sorted-key order (the
-    reference's ``tree_map_with_path`` order); other leaves pass through."""
+    reference's ``tree_map_with_path`` order), and ``table_fn(leaf)`` on
+    every 2-D+ embedding table (a leaf named ``table``) when given; other
+    leaves pass through."""
     out = {}
     for key in sorted(params):
         leaf = params[key]
         if isinstance(leaf, dict):
-            out[key] = _map_weights(leaf, fn)
+            out[key] = _map_weights(leaf, fn, table_fn)
+        elif _is_weight(key, leaf):
+            out[key] = fn(leaf)
+        elif table_fn is not None and key == "table" and _is_dense(leaf):
+            out[key] = table_fn(leaf)
         else:
-            out[key] = fn(leaf) if _is_weight(key, leaf) else leaf
+            out[key] = leaf
     return out
 
 
@@ -130,20 +143,30 @@ def quantize_param_tree(params, bits: int = 8, optimal: bool = False,
     layer at a time, which bounds the encode's temporaries (several f32 and
     int copies of the leaf) by one layer's — a few GB less per full-width
     MLP weight — and gives the whole-leaf codes, since the channel scales
-    reduce within a layer."""
+    reduce within a layer. ``include_embedding`` also quantizes the
+    embedding tables: the int or bitplane scheme of the weights, and the
+    int scheme under ``optimal=True``."""
     if layout not in ("dense", "bitplane"):
         raise ValueError(f"layout must be 'dense' or 'bitplane', got {layout!r}")
     if layout == "bitplane" and (optimal or packed):
         raise ValueError("layout='bitplane' excludes optimal= and packed=")
-    if include_embedding:
-        raise NotImplementedError(
-            "quantized embedding tables are not ported (ROADMAP A5)")
+
+    def int_codes(w):
+        return encode(w, _weight_scheme(bits, packed=_auto_packed(bits, w, packed)))
+
+    def bitplane_codes(w):
+        return _encode_by_layer(w, QScheme.bitplane(bits))
+
+    def optimal_codes(w):
+        return _optimal_quantize_weight(w, bits)
+
     if layout == "bitplane":
-        return _map_weights(params, lambda w: _encode_by_layer(w, QScheme.bitplane(bits)))
-    if optimal:
-        return _map_weights(params, lambda w: _optimal_quantize_weight(w, bits))
-    return _map_weights(params, lambda w: encode(
-        w, _weight_scheme(bits, packed=_auto_packed(bits, w, packed))))
+        fn = table_fn = bitplane_codes
+    elif optimal:
+        fn, table_fn = optimal_codes, int_codes
+    else:
+        fn = table_fn = int_codes
+    return _map_weights(params, fn, table_fn if include_embedding else None)
 
 
 def _encode_by_layer(w: torch.Tensor, scheme: QScheme) -> QTensor:

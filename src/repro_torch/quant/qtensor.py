@@ -166,6 +166,14 @@ def _absmax(x32: torch.Tensor, scheme: QScheme) -> torch.Tensor:
     return torch.amax(a, dim=scheme.channel_axis, keepdim=True)
 
 
+def div_exact(t: torch.Tensor, c: float) -> torch.Tensor:
+    """t / c as an IEEE division on every device: torch on CUDA divides by a
+    Python scalar as a multiplication by its reciprocal, one ulp off the
+    quotient for a few percent of values (ROADMAP C17), so the divisor goes
+    in as a tensor."""
+    return t / torch.full_like(t, float(c))
+
+
 def compute_scale(x: torch.Tensor, scheme: QScheme) -> torch.Tensor:
     """The decode multiplier of ``x`` under ``scheme``'s scaling family:
     absmax/qmax on the int grid, absmax itself on the zipml grid and the
@@ -179,7 +187,7 @@ def compute_scale(x: torch.Tensor, scheme: QScheme) -> torch.Tensor:
         # same for every plane slice
         return torch.where(m == 0, torch.ones_like(m), m)
     if scheme.grid == "int":
-        return torch.where(m == 0, torch.ones_like(m), m / float(scheme.qmax))
+        return torch.where(m == 0, torch.ones_like(m), div_exact(m, scheme.qmax))
     return torch.where(m == 0, torch.ones_like(m), m)
 
 

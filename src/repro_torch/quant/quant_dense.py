@@ -12,6 +12,11 @@ flows to. Its product is one ``torch.autograd.Function``
 ``quant_dense``; the backward computes dx in the code domain —
 ``quant_dense(g, qt, transpose=True)``, the ``qmm_t`` kernel on the card —
 and dW = Σ x ⊗ g as a plain product emitted in the master's dtype.
+
+``transpose=True`` contracts against Wᵀ (the tied unembed: logits =
+h · tableᵀ, ``qmm_t`` on the card). :func:`quant_dense_q` is the product
+with the fused quantize epilogue: the §2.2 double-sampled row-scaled pair of
+the output (``qmm_qout`` on the card), forward only.
 """
 from __future__ import annotations
 
@@ -98,46 +103,68 @@ def _backend(backend, device):
 
 
 class _ShipDense(torch.autograd.Function):
-    """y = x · decode(qt) with the straight-through gradient to the master
-    (the reference's ``_qd_ste``). Integer codes and scales get no
-    gradient."""
+    """y = x · decode(qt) (or · decode(qt)ᵀ) with the straight-through
+    gradient to the master (the reference's ``_qd_ste``). Integer codes and
+    scales get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, master, codes, scale, scheme, backend):
+    def forward(ctx, x, master, codes, scale, scheme, backend, transpose):
         qt = QTensor(codes, scale, scheme)
         ctx.save_for_backward(x, codes, scale)
-        ctx.meta = (master.dtype, scheme, backend)
-        return _backend(backend, x.device).quant_dense(x, qt)
+        ctx.meta = (master.dtype, scheme, backend, transpose)
+        return _backend(backend, x.device).quant_dense(x, qt, transpose=transpose)
 
     @staticmethod
     def backward(ctx, g):
         x, codes, scale = ctx.saved_tensors
-        mdtype, scheme, backend = ctx.meta
+        mdtype, scheme, backend, transpose = ctx.meta
         qt = QTensor(codes, scale, scheme)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = _backend(backend, g.device).quant_dense(
-                g, qt, transpose=True).to(x.dtype)
+                g, qt, transpose=not transpose).to(x.dtype)
         if ctx.needs_input_grad[1]:
             # layers.dense casts y to x.dtype, so g's values are exact in
             # x's dtype and Σ_batch x ⊗ g runs as one product there
-            dw = mm_f32(x.reshape(-1, x.shape[-1]).t(),
-                        g.reshape(-1, g.shape[-1]).to(x.dtype)).to(mdtype)
-        return dx, dw, None, None, None, None
+            x2 = x.reshape(-1, x.shape[-1])
+            g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+            dw = (mm_f32(g2.t(), x2) if transpose else mm_f32(x2.t(), g2)).to(mdtype)
+        return dx, dw, None, None, None, None, None
 
 
-def quant_dense(x: torch.Tensor, w, *, backend=None) -> torch.Tensor:
-    """y = x · W in f32; the caller casts.
+def quant_dense(x: torch.Tensor, w, *, transpose: bool = False,
+                backend=None) -> torch.Tensor:
+    """y = x · W (or x · Wᵀ) in f32; the caller casts.
 
     ``w``: a :class:`QTensor` (codes stream through the kernel backend), a
     :class:`ShipWeight` (the same, plus the straight-through master
-    gradient), or a dense weight (plain product). Weights are 2-D (K, N).
-    The transposed product x · Wᵀ (the backward's dx) is the backends'
-    ``quant_dense(..., transpose=True)``."""
+    gradient), or a dense weight (plain product). Weights are 2-D (K, N);
+    ``transpose`` contracts x (…, N) against Wᵀ → (…, K) (the tied unembed,
+    and the backward's dx)."""
     if isinstance(w, ShipWeight):
         qt = w.qt
         return _ShipDense.apply(x, w.master, qt.codes, qt.scale, qt.scheme,
-                                backend)
+                                backend, transpose)
     if isinstance(w, QTensor):
-        return _backend(backend, x.device).quant_dense(x, w)
-    return mm_f32(x, w)
+        return _backend(backend, x.device).quant_dense(x, w, transpose=transpose)
+    return mm_f32(x, w.t() if transpose else w)
+
+
+def quant_dense_q(x: torch.Tensor, w, key: torch.Tensor, *, bits: int = 8,
+                  backend=None) -> QTensor:
+    """``quant_dense`` with the fused quantize epilogue: the §2.2
+    double-sampled row-scaled int-grid pair of the output activation as one
+    QTensor (codes + codes2 + (…, 1) row scales) instead of the dense y.
+    Forward only: the consumer of the pair owns the backward. A ShipWeight
+    streams its codes; a dense ``w`` takes the plain product, cast to x's
+    dtype, then the split-key pair (``ds_pair``)."""
+    if isinstance(w, ShipWeight):
+        w = w.qt
+    if isinstance(w, QTensor):
+        return _backend(backend, x.device).quant_dense_out_q(x, w, key, bits=bits)
+    from .qtensor import ds_pair
+    from .scheme import QScheme
+
+    y = mm_f32(x, w).to(x.dtype)
+    return ds_pair(y, QScheme.int_symmetric(bits, scaling="row", rounding="ds"), key,
+                   backend=backend)

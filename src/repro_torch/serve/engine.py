@@ -227,7 +227,7 @@ class ServeEngine:
         b = pos.shape[0]
         with registry.using(self.backend):
             kb = registry.get(device=dev)
-            x = embed(params["embed"], tok[:, None]).to(cfg.dtype)
+            x = embed(params["embed"], tok[:, None], cfg.dtype).to(cfg.dtype)
             for li, layer in enumerate(layers):
                 kp, vp, ks, vs = self.pool.layer(li)
 
@@ -283,7 +283,7 @@ class ServeEngine:
         g, h, d = spec.n_kv_heads, spec.n_heads, spec.head_dim
         with registry.using(self.backend):
             kb = registry.get(device=dev)
-            x = embed(params["embed"], toks).to(cfg.dtype)           # (B, W, d)
+            x = embed(params["embed"], toks, cfg.dtype).to(cfg.dtype)           # (B, W, d)
             for li, layer in enumerate(layers):
                 kp, vp, ks, vs = self.pool.layer(li)
 

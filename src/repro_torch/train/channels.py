@@ -12,7 +12,7 @@
 * grad   — stochastic int quantization with the error-feedback residual
   ``{'ef': f32 tree}`` carried in the channel state;
 * act    — the reference's model never reads ``act_bits`` (its channel
-  does nothing); the port raises on a plan with it (ROADMAP C9, A5).
+  does nothing); the port raises on a plan with it (ROADMAP C9).
 """
 from __future__ import annotations
 
@@ -134,7 +134,8 @@ class ActChannel(Channel):
             raise NotImplementedError(
                 "act_bits: the reference does not wire act_bits into its model "
                 "(a plan with it trains as one without it); the port raises "
-                "rather than ignore a requested channel (ROADMAP C9, A5)")
+                "rather than ignore a requested channel (ROADMAP C9; the "
+                "activation channel itself is precision.act_quant)")
         super().__init__(plan)
 
 

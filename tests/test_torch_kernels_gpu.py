@@ -18,7 +18,14 @@ codes equal, off by at most one level); the reduced training step on the
 card against the CPU's plain path: losses rtol 1e-4; ``qmm_bitplane`` rel
 1e-5 of the largest output, and bit-equal rows at every M; the reduced
 bitplane engines (plain, sliced, speculative) on the card against the CPU's
-plain path: greedy tokens equal.
+plain path: greedy tokens equal; ``qmm_qout`` bit-exact (both planes, the
+row scales) against the unfused pipeline on the card (``qmm`` kernel → cast
+→ ``ds_row_pair_ref``, the same rand plane: the kernel shares ``qmm``'s
+product), and against its plain version (f32 sums in another order) codes
+that differ only where the two y differ after the cast or the row scales
+differ, on at most 1e-4 of the elements; the reduced model with quantized
+embedding tables served on the card against the CPU's plain path: greedy
+tokens equal.
 """
 import numpy as np
 import pytest
@@ -29,7 +36,9 @@ from repro_torch import prng
 from repro_torch.kernels import paged_attn as tpa
 from repro_torch.kernels import qmm as tqmm
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import qmm_qout as tqout
 from repro_torch.kernels import qmm_t as tqmm_t
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import quant_adamw as tqa
 from repro_torch.kernels import qmv as tqmv
 from repro_torch.kernels import stoch_quant as tsq
@@ -553,3 +562,105 @@ def test_bitplane_engines_card_match_cpu_plain_path(cuda):
             toks[str(where)] = {r: f.tokens.tolist() for r, f in res.items()}
             eng.allocator.check_leaks(0)
         assert toks[str(cuda)] == toks["cpu"], name
+
+
+QOUT_SHAPES = [(13, 1001, 1000), (4, 2048, 256), (128, 2048, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QOUT_SHAPES)
+@pytest.mark.parametrize("wbits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_qmm_qout_kernel_bit_exact_vs_unfused(cuda, m, k, n, wbits, bits, xdtype):
+    packed = wbits == 4
+    qmax = 2 ** (bits - 1) - 1
+    tq = _weights(k, n, wbits, packed, seed=k).to(cuda)
+    rng = np.random.default_rng(m + n)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(cuda, xdtype)
+    x[min(2, m - 1)] = float("nan")                  # a NaN row: codes 0, scale NaN
+    rand = torch.from_numpy(rng.integers(0, 2 ** 32, (m, n), dtype=np.uint32)
+                            .view(np.int32)).to(cuda)
+    before = tqout.launches
+    c1, c2, sc = tqout.qmm_qout(x, tq.codes, tq.scale, rand, qmax=qmax, packed=packed,
+                                out_dtype=xdtype)
+    torch.cuda.synchronize()
+    assert tqout.launches == before + 1
+    y = tqmm.qmm(x, tq.codes, tq.scale, packed=packed).to(xdtype)
+    u1, u2, us = tref.ds_row_pair_ref(y, rand, qmax=qmax)
+    assert torch.equal(c1, u1) and torch.equal(c2, u2)
+    torch.testing.assert_close(sc, us, rtol=1e-6, atol=0, equal_nan=True)
+    nan_row = min(2, m - 1)
+    assert not c1[nan_row].any() and not c2[nan_row].any() and sc[nan_row].isnan().all()
+    # the plain version sums in another order
+    p1, p2, ps = tqout.qmm_qout_plain(x, tq.codes, tq.scale, rand, qmax=qmax,
+                                      packed=packed, out_dtype=xdtype)
+    yp = tqmm.qmm_plain(x, tq.codes, tq.scale, packed=packed).to(xdtype)
+    same_y = (y == yp) | (y.isnan() & yp.isnan())
+    same_s = (sc == ps) | (sc.isnan() & ps.isnan())
+    moved = ~same_y | ~same_s
+    diff1, diff2 = c1 != p1, c2 != p2
+    assert not (diff1 & ~moved).any() and not (diff2 & ~moved).any()
+    share = float((diff1.sum() + diff2.sum()) / (2 * m * n))
+    assert share <= 1e-4, share
+    assert int((c1.int() - c2.int()).abs().max()) <= 1
+    assert int(c1.abs().max()) <= qmax and int(c2.abs().max()) <= qmax
+
+
+@pytest.mark.gpu
+def test_quant_dense_q_on_card_launches_qmm_qout_only(cuda):
+    tq = _weights(64, 40, 8, False).to(cuda)
+    x = torch.randn(2, 9, 64, device=cuda, dtype=torch.bfloat16)
+    q0, o0 = tqmm.launches, tqout.launches
+    pair = tquant.quant_dense_q(x, tq, prng.PRNGKey(0), bits=8)
+    torch.cuda.synchronize()
+    assert (tqmm.launches - q0, tqout.launches - o0) == (0, 1)
+    assert pair.codes.shape == (2, 9, 40) and pair.scale.shape == (2, 9, 1)
+    cpu = tquant.quant_dense_q(x.cpu(), tq.to("cpu"), prng.PRNGKey(0), bits=8,
+                               backend="cuda")
+    share = float((pair.codes.cpu() != cpu.codes).float().mean())
+    assert share <= 1e-2          # 720 codes; sums reordered card vs CPU
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+def test_qmm_t_kernel_at_unembed_decode_shape(cuda, bits, packed):
+    """The tied unembed at decode: M 4 slots against a long vocab axis."""
+    m, k, n = 4, 65536, 512
+    qt = _weights(k, n, bits, packed, seed=1).to(cuda)
+    g = torch.randn(m, n, device=cuda, dtype=torch.bfloat16)
+    before = tqmm_t.launches
+    got = tqmm_t.qmm_t(g, qt.codes, qt.scale, packed=packed)
+    assert tqmm_t.launches == before + 1
+    want = tqmm_t.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
+    torch.cuda.synchronize()
+    assert got.shape == (m, k)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_table_engine_card_matches_cpu_plain_path(cuda, bits):
+    """Reduced gemma-2b at f32 with quantized embedding tables: greedy
+    tokens on the card (qmm, qmm_t for every readout, paged attention) equal
+    the CPU's plain path."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    plan = PrecisionPlan(model_bits=bits, kv_bits=bits, model_storage="int")
+    cfg = configs.get_reduced("gemma-2b", dtype=torch.float32, precision=plan)
+    params = quantize_param_tree(T.init_params(cfg, seed=0, device="cpu"), bits=bits,
+                                 include_embedding=True)
+    toks = {}
+    before = tqmm_t.launches
+    for where in (cuda, "cpu"):
+        eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                          backend="cuda", device=where)
+        res = eng.run(make_trace(8, cfg.vocab_size, max_new=16, max_prompt=32, seed=0))
+        toks[str(where)] = {r: f.tokens.tolist() for r, f in res.items()}
+    assert tqmm_t.launches > before
+    assert toks[str(cuda)] == toks["cpu"]

@@ -113,9 +113,17 @@ def test_layer_index_is_a_view():
 
 
 def test_unported_paths_name_the_roadmap():
+    """Quantized embedding tables are ported (ROADMAP A5, ``include_embedding``
+    quantizes only ``table`` leaves); stacked expert weights still wait for
+    ROADMAP A6."""
     x = torch.randn(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tqat.quantize_param_tree({"w": x}, bits=8, include_embedding=True)
+    out = tqat.quantize_param_tree({"w": x}, bits=8, include_embedding=True)
+    assert isinstance(out["w"], tquant.QTensor)
+    stacked = tquant.encode(torch.randn(2, 4, 4), tquant.QScheme.int_symmetric(
+        8, scaling="channel", rounding="nearest"))
+    for be in ("ref", "cuda"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+            tquant.quant_dense(x, stacked, backend=be)
 
 
 def test_levels_grid_encode_matches_reference():

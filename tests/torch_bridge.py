@@ -122,11 +122,12 @@ def jax_decode_logits(eng, fn, tokens, positions, block_table, active):
 
 
 def serve_both(dtype: str, weight_bits: int, kv_bits: int, *, n_requests=8,
-               max_new=8, max_prompt=16, page_size=8, seed=0):
+               max_new=8, max_prompt=16, page_size=8, seed=0,
+               include_embedding=False):
     """Serve the same ``make_trace`` through the reference engine (``ref``
     backend) and the port's engine on the CPU, with the reference's params
-    bridged across. Returns (ref_engine, port_engine, ref_results,
-    port_results)."""
+    bridged across (``include_embedding`` quantizes the embedding table
+    too). Returns (ref_engine, port_engine, ref_results, port_results)."""
     from repro import configs as jconfigs
     from repro.launch.serve import make_trace as jtrace
     from repro.models import transformer as JT
@@ -146,7 +147,8 @@ def serve_both(dtype: str, weight_bits: int, kv_bits: int, *, n_requests=8,
     tcfg = tconfigs.get_reduced("gemma-2b", dtype=td)
     params = JT.init_params(jax.random.PRNGKey(seed), jcfg)
     if weight_bits:
-        params = quantize_param_tree(params, bits=weight_bits)
+        params = quantize_param_tree(params, bits=weight_bits,
+                                     include_embedding=include_embedding)
     ekw = dict(max_slots=4, page_size=page_size,
                max_seq_len=max_prompt + max_new + page_size)
     jeng = JEngine(params, jcfg, plan=JPlan(**kw), backend="ref", **ekw)
