@@ -95,7 +95,21 @@ NVIDIA card.
    ``paged_decode_attn`` counters set to 0 just before and read just after.
    ``[check]``: the reduced model with quantized tables at 8 and 4 bits and
    a reduced ``ds_mlp`` step, card against the CPU's plain path;
-9. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
+9. slice 7 — ``[kernel] ssd_chunk_scan`` (B12): the SSD chunk scan against
+   its plain version at mamba2-780m's prefill (B 4, 4 chunks of 256, H 48,
+   P 64, N 128, bf16), at the single 1023-row chunk of a 1023-token prompt,
+   and there at f32 with an initial state (rtol = atol = 2e-2 bf16, 1e-4
+   f32), and ``qmm`` at mamba2's int8 in_proj (K 1536, N 6448) and out_proj
+   (K 3072, N 1536) at decode and prefill M. ``[serve-mamba]``: full-width
+   mamba2-780m through ``repro_torch.launch.serve.serve`` (4 prompts of
+   1024 tokens, 32 new tokens, random weights from seed 0) at 8-bit weights
+   and at bf16, the ``ssd_chunk_scan`` and ``qmm`` counters set to 0 just
+   before and read just after (48 SSD launches per prefill); then on the
+   same weights prefill(prompt[:, :-1]) + one decode step against
+   prefill(prompt), and a profile of 5 decode steps; every launched shape
+   must have been checked. ``[check]``: the reduced model (chunk 16, f32
+   and bf16, bits 0 and 8) on the card against the CPU's plain path;
+10. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -240,6 +254,43 @@ UNEMBED_KN = (256000, 2048)
 ACT = dict(batch=4, seq=512, draws=32, se=5.0, steps=5, lr=0.03)
 # [check]: a reduced ds_mlp step card vs CPU (f32, 64 rows, d 64, d_ff 128)
 ACT_CHECK_TOL = 1e-5          # rel to the largest gradient entry: sums reordered
+# slice 7: full-width mamba2-780m through the legacy serve loop — 4 random
+# prompts of 1024 tokens (4 chunks of 256, so the state carry runs at full
+# width) and 32 new tokens, int8 weights, then the bf16 yardstick (bits 0)
+MAMBA = dict(batch=4, prompt_len=1024, gen=32)
+MAMBA_WIDTH = (48, 1536, 48, 64, 128)   # layers, d_model, SSM heads, head_dim, state
+MAMBA_BITS = (8, 0)
+# qmm at mamba2's int8 projections: (K, N) of in_proj and out_proj, at
+# decode (M = batch) and the prefills of [serve-mamba] (M = B·S of the
+# prompt, and of the prompt less its last token: the consistency check)
+MAMBA_QMM_KN = ((1536, 6448, "in_proj"), (3072, 1536, "out_proj"))
+MAMBA_QMM_MS = (4, 4 * 1024, 4 * 1023)
+# ssd_chunk_scan (B12): ((B, NC, L, H, P, N), x/B/C dtype, initial state, role)
+# — the prefill's 4 chunks of 256; the single 1023-row chunk that
+# prefill(prompt[:, :-1]) runs (256 does not divide 1023); and that chunk at
+# f32 with a non-zero initial state
+SSD_CASES = [((4, 4, 256, 48, 64, 128), "bfloat16", False, "prefill, 4 chunks"),
+             ((4, 1, 1023, 48, 64, 128), "bfloat16", False, "prefill of 1023, one chunk"),
+             ((4, 4, 256, 48, 64, 128), "float32", False, "f32 prefill, 4 chunks"),
+             ((4, 1, 1023, 48, 64, 128), "float32", False, "f32 prefill of 1023"),
+             ((4, 1, 1023, 48, 64, 128), "float32", True, "f32, initial state")]
+# rtol and atol: the reference's own for its Pallas kernel
+# (tests/test_kernels.py): f32 sums in another order; at bf16 y rounds once more
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# prefill(prompt[:, :-1]) + one decode_step against prefill(prompt)'s last
+# logits at full width: within 2e-2 of the largest |logit|, gated at f32
+# (f32 weights and activations), where the reference's own test of this
+# bookkeeping runs it (tests/test_arch_smoke.py). At bf16 the gap is
+# reported, not gated: the prefill sums the conv in bf16 and the decode in
+# f32, and 1023 tokens make one chunk whose f32 cumulative log-decay loses
+# digits in cum_l − cum_m, so on full-width mamba2-780m (48 layers, four
+# 1024-token prompts, random weights) the reference itself parts there by
+# 19 % of the largest logit at bf16 (1.83 of 9.51) and 5.9e-3 at f32, and
+# two implementations of the same bf16 prefill part by as much (the port's
+# and the reference's on one CPU: 2.28); scripts/reference_mamba_consistency.py
+# --full --batch 4 --prompt 1024, ROADMAP
+MAMBA_CONSISTENCY_TOL = 2e-2
+MAMBA_CHECK_TOL = 1e-4        # [check] f32, card vs CPU plain path, of the largest |logit|
 
 
 def _fail(msg: str, code: int):
@@ -273,10 +324,47 @@ def _bound(nbytes: int, ops: int, peak: float = BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_qmm(dev, flush):
+def _qmm_row(dev, gen, flush, bits, m, k, n, role=""):
+    """``qmm`` against its plain version at one shape (int8 or packed int4
+    codes of a random weight, bf16 x): checked within ``QMM_TOL`` and
+    timed beside the plain version, the bf16 matmul and the bound."""
     import torch
     from repro_torch.kernels import qmm as Q
     from repro_torch.quant import QScheme, encode
+
+    packed = bits == 4
+    w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+    qt = encode(w, QScheme.int_symmetric(bits, scaling="channel",
+                                         rounding="nearest", packed=packed))
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    got = Q.qmm(x, qt.codes, qt.scale, packed=packed)
+    want = Q.qmm_plain(x, qt.codes, qt.scale, packed=packed)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ref_max = float(want.abs().max())
+    if not err <= QMM_TOL * ref_max:
+        raise AssertionError(f"qmm int{bits} {m}x{k}x{n}: max err {err} "
+                             f"> {QMM_TOL} x {ref_max}")
+    w_bf16 = qt.decode().to(torch.bfloat16)
+    ms = _timed(lambda: Q.qmm(x, qt.codes, qt.scale, packed=packed), flush)
+    plain_ms = _timed(lambda: Q.qmm_plain(x, qt.codes, qt.scale, packed=packed), flush)
+    lib_ms = _timed(lambda: torch.matmul(x, w_bf16), flush)
+    nbytes = x.numel() * 2 + qt.codes.numel() + n * 4 + m * n * 4
+    # x is bf16 and bf16 holds every int8 code exactly; the per-column
+    # scale comes after the contraction, so one bf16 tensor-core GEMM
+    # with f32 accumulation computes the same function: the bf16 rate
+    bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
+    print(f"[kernel] qmm int{bits} (M,K,N)=({m},{k},{n}){role}: max_err={err:.3e} "
+          f"(tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    return {"name": f"qmm int{bits} M{m} K{k} N{n}{role}", "key": (packed, m, k, n),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_qmm(dev, flush):
+    import torch
 
     # serving's prefill runs gate/up at every prompt bucket: M 128 (the
     # largest there can be) and the largest of the trace are checked
@@ -284,38 +372,24 @@ def check_qmm(dev, flush):
     rows = []
     gen = torch.Generator(device=dev).manual_seed(1)
     for bits in (8, 4):
-        packed = bits == 4
         for m, k, n in [*QMM_SHAPES, (prefill_m, 2048, 16384)]:
-            w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
-            qt = encode(w, QScheme.int_symmetric(bits, scaling="channel",
-                                                 rounding="nearest", packed=packed))
-            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-            got = Q.qmm(x, qt.codes, qt.scale, packed=packed)
-            want = Q.qmm_plain(x, qt.codes, qt.scale, packed=packed)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ref_max = float(want.abs().max())
-            if not err <= QMM_TOL * ref_max:
-                raise AssertionError(f"qmm int{bits} {m}x{k}x{n}: max err {err} "
-                                     f"> {QMM_TOL} x {ref_max}")
-            w_bf16 = qt.decode().to(torch.bfloat16)
-            ms = _timed(lambda: Q.qmm(x, qt.codes, qt.scale, packed=packed), flush)
-            plain_ms = _timed(lambda: Q.qmm_plain(x, qt.codes, qt.scale, packed=packed), flush)
-            lib_ms = _timed(lambda: torch.matmul(x, w_bf16), flush)
-            nbytes = x.numel() * 2 + qt.codes.numel() + n * 4 + m * n * 4
-            # x is bf16 and bf16 holds every int8 code exactly; the per-column
-            # scale comes after the contraction, so one bf16 tensor-core GEMM
-            # with f32 accumulation computes the same function: the bf16 rate
-            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
             role = f" (prefill, bucket {m})" if m in (prefill_m, SERVE["max_prompt"]) else ""
-            rows.append({"name": f"qmm int{bits} M{m} K{k} N{n}{role}",
-                         "key": (packed, m, k, n),
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-            print(f"[kernel] qmm int{bits} (M,K,N)=({m},{k},{n}): max_err={err:.3e} "
-                  f"(tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+            rows.append(_qmm_row(dev, gen, flush, bits, m, k, n, role))
+    return rows
+
+
+def check_qmm_mamba(dev, flush):
+    """``qmm`` at mamba2-780m's int8 projections — in_proj (K 1536, N 6448:
+    N not a multiple of 64) and out_proj (K 3072, N 1536) — at decode (M =
+    batch) and at the prefills of ``[serve-mamba]`` (M = B·S of the prompt
+    and of the prompt less its last token)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for m in MAMBA_QMM_MS:
+        for k, n, what in MAMBA_QMM_KN:
+            rows.append(_qmm_row(dev, gen, flush, 8, m, k, n, f" (mamba2 {what})"))
     return rows
 
 
@@ -466,29 +540,21 @@ def _device_kernels(prof):
     return by_kernel, n_events
 
 
-def profile_decode(engine, steps: int = 5, what: str = "decode steps"):
-    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
-    steady decode steps (speculative windows on a speculative engine) of 4
-    live requests — device time by kernel, and the device's idle share of
-    the window's wall time."""
+def profile_window(advance, steps: int, what: str):
+    """``torch.profiler`` over ``steps`` calls of ``advance()`` (one decode
+    step or speculative window each): device time by kernel, and the
+    device's idle share of the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import make_trace
 
-    for r in make_trace(4, engine.cfg.vocab_size, max_new=steps + 4,
-                        min_prompt=64, max_prompt=64, seed=7):
-        engine.submit(r)
-    engine.step()                                  # admit all four + one decode
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            advance()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_kernel, n_kernels = _device_kernels(prof)
-    while engine.busy:
-        engine.step()
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
@@ -497,14 +563,30 @@ def profile_decode(engine, steps: int = 5, what: str = "decode steps"):
            "device_idle_share": 1 - device_ms / wall_ms if device_ms else None,
            "top_kernels_ms_per_step": {k: v / steps for k, v in top}}
     if device_ms:
-        print(f"[profile] {steps} {what} x 4 live slots: wall {out['wall_ms_per_step']:.2f} "
+        print(f"[profile] {steps} {what}: wall {out['wall_ms_per_step']:.2f} "
               f"ms/step, {out['device_events_per_step']:.0f} device events/step, device busy "
-              f"{out['device_ms_per_step']:.2f} ms/step, idle share "
+              f"{out['device_ms_per_step']:.3f} ms/step, idle share "
               f"{out['device_idle_share']:.3f}; top: " + "; ".join(
                   f"{k[:40]} {v:.3f}" for k, v in out["top_kernels_ms_per_step"].items()),
               flush=True)
     else:
         print("[profile] torch.profiler recorded no device time: not measured", flush=True)
+    return out
+
+
+def profile_decode(engine, steps: int = 5, what: str = "decode steps"):
+    """Where a decode step's time goes: ``profile_window`` over ``steps``
+    steady decode steps (speculative windows on a speculative engine) of 4
+    live requests."""
+    from repro_torch.launch.serve import make_trace
+
+    for r in make_trace(4, engine.cfg.vocab_size, max_new=steps + 4,
+                        min_prompt=64, max_prompt=64, seed=7):
+        engine.submit(r)
+    engine.step()                                  # admit all four + one decode
+    out = profile_window(engine.step, steps, f"{what} x 4 live slots")
+    while engine.busy:
+        engine.step()
     return out
 
 
@@ -2395,6 +2477,317 @@ def agree_embed_act(dev):
     return out
 
 
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _ssd_inputs(dev, shape, dtype, init, seed=0):
+    """The model's laws at random: x N(0, .25), dt = softplus(N(0, 1) − 1),
+    logdec = dt · −(1..H) (a_log = log(1..H), the init's), B and C N(0, .09),
+    x/B/C in ``dtype`` cut as strided views from one projection row, as the
+    model's are; an initial state N(0, 1) when ``init``."""
+    import torch
+
+    b, nc, L, h, p, n = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(device=dev, dtype=torch.float32)
+    row = torch.randn(b, nc, L, h * p + 2 * n, generator=g, **f32)
+    row[..., :h * p] *= 0.5
+    row[..., h * p:] *= 0.3
+    row = row.to(dtype)
+    x = row[..., :h * p].reshape(b, nc, L, h, p)
+    bm, cm = row[..., h * p:h * p + n], row[..., h * p + n:]
+    dt = torch.nn.functional.softplus(torch.randn(b, nc, L, h, generator=g, **f32) - 1)
+    logdec = dt * -torch.arange(1, h + 1, **f32)
+    st = torch.randn(b, h, p, n, generator=g, **f32) if init else None
+    return x, dt, logdec, bm, cm, st
+
+
+def check_ssd(dev, flush):
+    """``ssd_chunk_scan`` against its plain version at ``SSD_CASES``: y and
+    the final state within ``SSD_TOL`` (rtol and atol) and finite; timed
+    beside the plain version and the bound (no PyTorch call computes SSD)."""
+    import torch
+    from repro_torch.kernels import ssd as SD
+
+    rows = []
+    for shape, dname, init, role in SSD_CASES:
+        dtype = getattr(torch, dname)
+        args = _ssd_inputs(dev, shape, dtype, init)
+        y, st = SD.ssd_chunk_scan(*args)
+        y_ref, st_ref = SD.ssd_chunk_scan_plain(*args)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dname]
+        errs = {}
+        for what, got, want in (("y", y.float(), y_ref.float()), ("state", st, st_ref)):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"ssd_chunk_scan {shape} {dname}: {what} not finite")
+            errs[what] = float((got - want).abs().max())
+            if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+                raise AssertionError(f"ssd_chunk_scan {shape} {dname}: {what} max err "
+                                     f"{errs[what]} beyond rtol = atol = {tol}")
+        ms = _timed(lambda: SD.ssd_chunk_scan(*args), flush)
+        plain_ms = _timed(lambda: SD.ssd_chunk_scan_plain(*args), flush)
+        b, nc, L, h, p, n = shape
+        esz = y.element_size()
+        nbytes = (esz * b * nc * L * (2 * h * p + 2 * n) + 4 * 2 * b * nc * L * h
+                  + 4 * b * h * p * n * (2 if init else 1))
+        # the three contractions of every (batch, chunk), C·Bᵀ once (one
+        # group) and the causal halves only: the least work for the function
+        tri = L * (L + 1) // 2
+        ops = 2 * b * nc * (tri * n + tri * h * p + 2 * L * h * p * n)
+        bound_ms, bound_by = _bound(nbytes, ops, F32_FLOPS)
+        name = (f"ssd_chunk_scan {dname} B{b} NC{nc} L{L} H{h} P{p} N{n}"
+                f"{' init' if init else ''} ({role})")
+        rows.append({"name": name, "key": (dname, *shape, init),
+                     "max_abs_err": max(errs.values()), "y_err": errs["y"],
+                     "state_err": errs["state"], "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"[kernel] {name}: y max_err={errs['y']:.3e} state max_err="
+              f"{errs['state']:.3e} (rtol = atol = {tol:g}) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+              f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+        del args, y, st, y_ref, st_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_steps(step, params, state, tok, steps: int = 5):
+    """``profile_window`` over ``steps`` greedy decode steps of the legacy
+    loop, after one untimed step."""
+    carry = list(step(params, state, tok)[1:])          # [next tokens, state]
+
+    def advance():
+        _, carry[0], carry[1] = step(params, carry[1], carry[0][:, None])
+    return profile_window(advance, steps, "legacy decode steps")
+
+
+def _consistency(T, step, params, prompts, cfg):
+    """prefill(prompt) against prefill(prompt[:, :-1]) + one decode step:
+    the two last-position logits over the real vocab (the pad is masked to
+    -1e30), and the seconds of the whole prefill."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _ = T.prefill(params, prompts, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    _, state = T.prefill(params, prompts[:, :-1], cfg)
+    last, nxt, state = step(params, state, prompts[:, -1:].to(torch.int32))
+    v = cfg.vocab_size
+    full, last = full[:, :v].float(), last[:, -1, :v].float()
+    if not (torch.isfinite(full).all() and torch.isfinite(last).all()):
+        raise AssertionError("[serve-mamba] logits not finite")
+    out = {"max_abs": float((last - full).abs().max()), "logit_scale": float(full.abs().max()),
+           "argmax_equal": int((last.argmax(-1) == full.argmax(-1)).sum())}
+    return out, full, last, prefill_s, state, nxt
+
+
+def serve_mamba(dev, ssd_rows, qmm_rows):
+    """Slice 7's main path: ``repro_torch.launch.serve.serve`` on full-width
+    mamba2-780m (48 layers, d_model 1536, 48 heads × 64, state 128; random
+    weights, seed 0) at ``MAMBA``, weight bits 8 then 0 (the bf16 yardstick),
+    the ``ssd_chunk_scan`` and ``qmm`` counters set to 0 just before and read
+    just after each call: 48 SSD launches (one prefill), qmm 2 per layer per
+    prefill and per decode step at 8 bits, none at 0; its tokens/s gives the
+    decode step time. Then, on the same weights through ``T.prefill`` and
+    the serve step (counters again, 96 SSD launches): prefill(prompt), timed
+    (the prefill time), against prefill(prompt[:, :-1]) + one decode step,
+    reported at bf16; the serving peak memory; the cache bytes; a profile
+    of one prefill and of 5 decode steps. Then the same consistency at f32 (f32
+    weights, seed 0), gated at ``MAMBA_CONSISTENCY_TOL`` of the largest
+    |logit|. Only the serve() calls' launches are the main path's (the
+    kernels line); the checks' are reported apart. Every shape either
+    kernel launched on any of these runs must be among the checked ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs, prng
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import ssd as SD
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import tree_nbytes
+
+    bsz, plen, gen = MAMBA["batch"], MAMBA["prompt_len"], MAMBA["gen"]
+    # launches by shape: the main path's (the two serve() calls) and the
+    # checks' (the consistency prefills and steps, bf16 and f32) apart
+    path = {"ssd_chunk_scan": collections.Counter(), "qmm": collections.Counter()}
+    checks = {"ssd_chunk_scan": collections.Counter(), "qmm": collections.Counter()}
+
+    def reset():
+        Q.launches = SD.launches = 0
+        Q.shape_launches.clear()
+        SD.shape_launches.clear()
+
+    def read(into):
+        into["ssd_chunk_scan"].update(SD.shape_launches)
+        into["qmm"].update(Q.shape_launches)
+        return {"ssd_chunk_scan": SD.launches, "qmm": Q.launches}
+
+    def prompts_for(cfg):
+        return prng.randint(prng.fold_in(prng.PRNGKey(0), 1), (bsz, plen), 0,
+                            cfg.vocab_size, device=dev)
+
+    out = {}
+    for bits in MAMBA_BITS:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        tokens, tps = S.serve("mamba2-780m", reduced=False, weight_bits=bits, device=dev,
+                              **MAMBA)
+        wall = time.perf_counter() - t0
+        launches = read(path)
+        call_peak = torch.cuda.max_memory_allocated() - base
+        plan = S._resolve_plan(None, 0, bits)
+        cfg, params = S._build("mamba2-780m", reduced=False, plan=plan, seed=0, device=dev)
+        spec, L = cfg.ssm_spec, cfg.n_layers
+        if (L, cfg.d_model, spec.n_heads, spec.head_dim, spec.d_state) != MAMBA_WIDTH:
+            raise AssertionError(f"not full-width mamba2-780m: {cfg}")
+        if tokens.shape != (bsz, plen + gen) or tokens.min() < 0 \
+                or tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"[serve-mamba] tokens {tokens.shape}, range "
+                                 f"{tokens.min()}..{tokens.max()}")
+        want = {"ssd_chunk_scan": L, "qmm": 2 * L * (1 + gen) if bits else 0}
+        if launches != want:
+            raise AssertionError(f"[serve-mamba] bits {bits}: launches {launches}, "
+                                 f"expected {want}")
+        # the same weights and prompts through the entry points serve() calls
+        prompts = prompts_for(cfg)
+        if not np.array_equal(prompts.cpu().numpy(), tokens[:, :plen]):
+            raise AssertionError("[serve-mamba] the rebuilt prompts differ from serve()'s")
+        step = make_serve_step(cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        cons, _, _, prefill_s, state, nxt = _consistency(T, step, params, prompts, cfg)
+        cons_launches = read(checks)
+        serving_peak = torch.cuda.max_memory_allocated() - base
+        if cons_launches != {"ssd_chunk_scan": 2 * L, "qmm": 2 * L * 3 if bits else 0}:
+            raise AssertionError(f"[serve-mamba] consistency launches {cons_launches}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            T.prefill(params, prompts, cfg)
+            torch.cuda.synchronize()
+            pre_wall_ms = 1e3 * (time.perf_counter() - t0)
+        by_kernel, _ = _device_kernels(prof)
+        pre_dev = sum(by_kernel.values())
+        pre_top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+        print(f"[profile] one prefill ({bsz} x {plen}): wall {pre_wall_ms:.1f} ms, device "
+              f"busy {pre_dev:.1f} ms; top: " + "; ".join(
+                  f"{k[:40]} {v:.2f}" for k, v in pre_top.items()), flush=True)
+        prof_decode = profile_steps(step, params, state, nxt[:, None])
+        # serve() times its gen − 1 steady decode steps of the whole batch
+        run = {"weight_bits": bits, "tokens_shape": list(tokens.shape),
+               "prefill_ms": 1e3 * prefill_s,
+               "decode_ms_per_step": 1e3 * bsz / tps,
+               "decode_tokens_per_s": tps, "serve_call_peak_bytes": call_peak,
+               "serving_peak_bytes": serving_peak,
+               "cache_bytes_per_sequence": tree_nbytes(state.layers._asdict()) // bsz,
+               "weight_bytes": tree_nbytes(params),
+               "wall_s": wall, "launches": launches, "consistency_launches": cons_launches,
+               "consistency_bf16": cons,
+               "prefill_profile": {"wall_ms": pre_wall_ms, "device_ms": pre_dev,
+                                   "top_kernels_ms": pre_top},
+               "decode_profile": prof_decode}
+        print(f"[serve-mamba] mamba2-780m full width, weight bits {bits or 'bf16'}: tokens "
+              f"{tuple(tokens.shape)}; prefill {run['prefill_ms']:.1f} ms ({bsz} x {plen}); "
+              f"decode {run['decode_ms_per_step']:.2f} "
+              f"ms/step, {tps:.1f} tok/s; peak {call_peak / 2**30:.2f} GiB over the serve() "
+              f"call (weight init included), {serving_peak / 2**30:.2f} GiB serving "
+              f"(prefill, prefill, step); cache {run['cache_bytes_per_sequence']:,} "
+              f"bytes/sequence; weights {run['weight_bytes']:,} bytes; launches {launches}; "
+              f"bf16 prefill(p[:-1]) + decode vs prefill(p): max |dlogit| "
+              f"{cons['max_abs']:.3e} of {cons['logit_scale']:.3g}, argmax equal "
+              f"{cons['argmax_equal']}/{bsz} (reported, not gated)", flush=True)
+        out[bits] = run
+        del params, state
+        torch.cuda.empty_cache()
+    # the bookkeeping gate at f32, as the reference's test runs it
+    cfg = configs.get_config("mamba2-780m", dtype=torch.float32)
+    params = T.init_params(cfg, seed=0, device=dev)
+    reset()
+    cons, full, last, _, _, _ = _consistency(T, make_serve_step(cfg), params,
+                                              prompts_for(cfg), cfg)
+    cons["launches"] = read(checks)
+    tol = MAMBA_CONSISTENCY_TOL
+    ok = cons["max_abs"] <= tol * cons["logit_scale"]
+    print(f"[serve-mamba] f32 full width: prefill(p[:-1]) + decode vs prefill(p): max "
+          f"|dlogit| {cons['max_abs']:.3e} of {cons['logit_scale']:.3g} (tol {tol:g} of "
+          f"the largest), argmax equal {cons['argmax_equal']}/{bsz}; launches "
+          f"{cons['launches']}", flush=True)
+    if not ok or cons["launches"]["ssd_chunk_scan"] != 2 * cfg.n_layers:
+        raise AssertionError(f"[serve-mamba] f32 consistency: {cons}")
+    out["consistency_f32"] = cons
+    del params, full, last
+    checked = {"ssd_chunk_scan": {r["key"] for r in ssd_rows},
+               "qmm": {r["key"] for r in qmm_rows}}
+    for name in path:
+        unchecked = (set(path[name]) | set(checks[name])) - checked[name]
+        if unchecked:
+            raise AssertionError(f"[serve-mamba] {name} launched at unchecked shapes "
+                                 f"{sorted(unchecked)}")
+    out["shape_launches"] = {name: [[*k, v] for k, v in c.items()] for name, c in path.items()}
+    out["check_shape_launches"] = {name: [[*k, v] for k, v in c.items()]
+                                   for name, c in checks.items()}
+    torch.cuda.empty_cache()
+    return out
+
+
+def agree_mamba(dev):
+    """Reduced mamba2-780m built in-process from one torch seed, chunk 16
+    (a 64-token prompt is 4 chunks), on the card (``ssd_chunk_scan``,
+    ``qmm``) against the CPU's plain path: prefill + 8 greedy decode steps;
+    at f32 every logit within ``MAMBA_CHECK_TOL`` of the largest, at bf16
+    the greedy tokens equal; weight bits 0 and 8. Both run the ``cuda``
+    backend (on the CPU: the kernels' plain versions)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+
+    out = {}
+    for dname, bits in (("float32", 0), ("float32", 8), ("bfloat16", 0), ("bfloat16", 8)):
+        cfg = dataclasses.replace(
+            configs.get_reduced("mamba2-780m", dtype=getattr(torch, dname)), ssd_chunk=16)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        if bits:
+            params = quantize_param_tree(params, bits=bits)
+        step = make_serve_step(cfg)
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64)))
+        res = {}
+        for label, where in (("card", dev), ("cpu", "cpu")):
+            p = _tree_to(params, where)
+            with registry.using("cuda"):      # on the CPU: the kernels' plain versions
+                logits, state = T.prefill(p, prompt.to(where), cfg)
+                toks, lgs = [torch.argmax(logits, -1).to(torch.int32)[:, None]], [logits]
+                for _ in range(8):
+                    lg, nxt, state = step(p, state, toks[-1])
+                    toks.append(nxt[:, None])
+                    lgs.append(lg[:, 0])
+            res[label] = (torch.cat(toks, 1).cpu(), [t.float().cpu() for t in lgs])
+        (tc, lc), (tp, lp) = res["card"], res["cpu"]
+        rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(lc, lp))
+        same = bool(torch.equal(tc, tp))
+        print(f"[check] reduced mamba2-780m {dname} weight bits {bits or 'bf16'}: card vs "
+              f"CPU plain path — tokens equal {same}, logits max rel diff {rel:.2e}", flush=True)
+        if (dname == "float32" and rel > MAMBA_CHECK_TOL) or (dname == "bfloat16" and not same):
+            raise AssertionError(f"[check] reduced mamba2 {dname} bits {bits}: tokens equal "
+                                 f"{same}, logits rel {rel}")
+        out[f"{dname}_{bits}"] = {"tokens_equal": same, "logits_max_rel_diff": rel}
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -2453,6 +2846,8 @@ def main():
     sq_rows = phase("kernel stoch_quant", check_stoch_quant, dev, flush)
     qout_rows = phase("kernel qmm_qout", check_qmm_qout, dev, flush)
     unembed_rows = phase("kernel qmm_t unembed", check_qmm_t_unembed, dev, flush)
+    ssd_rows = phase("kernel ssd_chunk_scan", check_ssd, dev, flush)
+    mamba_qmm_rows = phase("kernel qmm mamba2", check_qmm_mamba, dev, flush)
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -2476,6 +2871,8 @@ def main():
     act = phase("act-quant", act_quant_path, dev)
     embed_run = phase("serve-embed", serve_embed, dev, runs[8])
     embed_small = phase("check embed and act-quant", agree_embed_act, dev)
+    mamba = phase("serve-mamba", serve_mamba, dev, ssd_rows, mamba_qmm_rows)
+    mamba_small = phase("check mamba", agree_mamba, dev)
 
     kernels = []
     all8 = {name: {tuple(k[:-1]): k[-1] for k in rows} for name, rows in
@@ -2579,6 +2976,24 @@ def main():
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm_t.cu",
                         "replaces": "src/repro/kernels/qmm.py:199", **r})
+    # ssd_chunk_scan and qmm at mamba2's shapes on [serve-mamba]'s main
+    # path: the wrappers' shape counters, reset just before and read just
+    # after each serve() call, summed (the consistency checks' launches are
+    # in the report's "check_shape_launches")
+    mamba_path = {name: {tuple(k[:-1]): k[-1] for k in rows}
+                  for name, rows in mamba["shape_launches"].items()}
+    ssd_errors = {r["name"]: {"y": r.pop("y_err"), "state": r.pop("state_err")}
+                  for r in ssd_rows}
+    for r in ssd_rows:
+        r["launches"] = mamba_path["ssd_chunk_scan"].get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+                        "replaces": "src/repro/kernels/ssd.py:69", **r})
+    for r in mamba_qmm_rows:
+        r["launches"] = mamba_path["qmm"].get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm.cu",
+                        "replaces": "src/repro/kernels/qmm.py:158", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = {r["name"]: {k: r[k] for k in ("matmul_ms", "plain_code_share")}
@@ -2596,7 +3011,9 @@ def main():
               "bitplane_agreement": bitplane_small, "quantize_rows": qrows, "cheb": cheb,
               "optimal": optimal, "serve_optimal": serve_opt, "cheb_agreement": cheb_small,
               "qmm_qout_extra": extra, "act_quant": act, "serve_embed": embed_run,
-              "embed_act_agreement": embed_small, "phase_seconds": phase_s}
+              "embed_act_agreement": embed_small, "serve_mamba": mamba,
+              "mamba_agreement": mamba_small, "ssd_errors": ssd_errors,
+              "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,7 @@ it in PyTorch for one NVIDIA H100, with every TPU kernel on a ported path
 rewritten as a hand-written Hopper kernel (``kernels/csrc``). It never
 imports JAX or ``repro``; only the parity tests load both.
 
-Five slices are ported: serving (``launch/serve.serve_engine``: int
+Seven slices are ported: serving (``launch/serve.serve_engine``: int
 weights at rest — or variance-optimal level tables, ``optimal_levels`` —
 a paged quantized KV pool, greedy decode; kernels ``qmm`` and
 ``paged_attn``), the paper's linear-model SGD (``core/linear``: linear
@@ -19,7 +19,11 @@ feedback, int8 AdamW moments; kernels ``qmm``, ``qmm_t`` and
 ``quant_adamw``) and any-precision serving (``serve_engine(weight_layout=
 'bitplane')``: bitplane weights, the ``weights-bitplane-v1`` artifact of
 ``ckpt``, ``set_weight_bits``, self-speculative decoding, the precision
-autoscaler; kernel ``qmm_bitplane``). Parts of ``repro`` outside the slices raise
+autoscaler; kernel ``qmm_bitplane``), the §3.4 activation channel and
+quantized embedding tables (``precision/act_quant``; kernel ``qmm_qout``)
+and mamba2-780m served through the legacy loop (``launch/serve.serve``:
+SSD prefill, O(1) recurrent decode; kernel ``ssd_chunk_scan``). Parts of
+``repro`` outside the slices raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Devices: every entry point runs on ``cuda`` unless the caller passes

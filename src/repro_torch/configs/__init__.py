@@ -1,5 +1,6 @@
-"""Architecture registry of the port. Slice 1 ports gemma-2b; the other
-nine architectures of ``repro.configs`` wait for ROADMAP A6."""
+"""Architecture registry of the port. Slice 1 ports gemma-2b, slice 7
+mamba2-780m; the other eight architectures of ``repro.configs`` wait for
+ROADMAP A6."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +8,7 @@ import importlib
 
 from repro_torch.models.transformer import ModelConfig
 
-ARCH_IDS = ("gemma-2b",)
+ARCH_IDS = ("gemma-2b", "mamba2-780m")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
 

@@ -1,8 +1,8 @@
 """Public wrappers around the kernels (port of ``repro.kernels.ops`` for
 ``quant_dense_apply``, ``paged_attention``, ``quantize_rows``,
 ``dequantize_rows``, ``ds_quantize``, ``int8_matvec``,
-``ds_gradient_from_codes``, ``quant_adamw_update``, ``quant_dense_bitplane``
-and ``quant_dense_out_q``).
+``ds_gradient_from_codes``, ``quant_adamw_update``, ``quant_dense_bitplane``,
+``quant_dense_out_q`` and ``ssd_chunked_kernel``).
 
 Unlike the TPU wrappers nothing is padded to 128: the CUDA kernels mask
 ragged edges themselves.
@@ -21,6 +21,7 @@ from . import qmm_t as qmm_t_mod
 from . import qmv as qmv_mod
 from . import quant_adamw as qa_mod
 from . import ref
+from . import ssd as ssd_mod
 from . import stoch_quant as sq_mod
 
 
@@ -181,3 +182,40 @@ def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand, *,
                                       msn, vsn, rand, params, b1=b1, b2=b2, eps=eps,
                                       wd=wd, qmax=qmax, uclip=uclip)
     return nm, mc, msn, vc, vsn
+
+
+def _ssd_chunked(scan, xh, dt, a_log, b_mat, c_mat, chunk, init_state):
+    b, s, h, p = xh.shape
+    L = min(chunk, s)
+    if s % L:
+        L = s                 # one chunk as long as the sequence
+    nc = s // L
+    a = -torch.exp(a_log.to(torch.float32))
+    logdec = (dt * a[None, None, :]).to(torch.float32)
+
+    def chunked(t):
+        return t.reshape(b, nc, L, *t.shape[2:])
+
+    y, state = scan(chunked(xh), chunked(dt), chunked(logdec), chunked(b_mat),
+                    chunked(c_mat), init_state)
+    return y.reshape(b, s, h, p), state
+
+
+def ssd_chunked_kernel(xh, dt, a_log, b_mat, c_mat, chunk: int = 256,
+                       init_state=None):
+    """Drop-in for ``models/ssm.ssd_chunked`` through the SSD kernel
+    (``ssd_chunk_scan``). xh (B, S, H, P); dt (B, S, H) f32 step sizes;
+    a_log (H,); b/c (B, S, G·N) with G = 1; init_state (B, H, P, N) or None.
+    A chunk of ``chunk`` steps, or one chunk of S where ``chunk`` does not
+    divide S. Returns (y (B, S, H, P) in xh's dtype, state (B, H, P, N)
+    f32)."""
+    return _ssd_chunked(ssd_mod.ssd_chunk_scan, xh, dt, a_log, b_mat, c_mat, chunk,
+                        init_state)
+
+
+def ssd_chunked_plain(xh, dt, a_log, b_mat, c_mat, chunk: int = 256,
+                      init_state=None):
+    """:func:`ssd_chunked_kernel` with the plain scan (``ref.ssd_chunk_scan_ref``)
+    — the einsum form of the reference's ``models/ssm.ssd_chunked``."""
+    return _ssd_chunked(ref.ssd_chunk_scan_ref, xh, dt, a_log, b_mat, c_mat, chunk,
+                        init_state)

@@ -218,3 +218,35 @@ def paged_attention_ref(q, k_pages, v_pages, k_scale, v_scale, block_table,
                          softmax_scale=softmax_scale)
     out = attn.decode_attention(q[:, None], k, v, spec, kv_len=seq_lens)
     return out[:, 0]
+
+
+def ssd_chunk_scan_ref(xh, dt, logdec, bmat, cmat, init_state=None):
+    """The plain chunked SSD (mirrors ``repro.kernels.ref.ssd_chunk_scan_ref``
+    and the einsum form of ``models/ssm.ssd_chunked``), all in f32, the
+    decay masked before the exponential.
+
+    xh (B, NC, L, H, P); dt/logdec (B, NC, L, H); b/c (B, NC, L, N);
+    init_state (B, H, P, N) or None (zeros). Returns y (B, NC, L, H, P) in
+    xh's dtype and the final state (B, H, P, N) f32."""
+    f32 = torch.float32
+    b, nc, L, h, p = xh.shape
+    n = bmat.shape[-1]
+    state = (torch.zeros((b, h, p, n), dtype=f32, device=xh.device)
+             if init_state is None else init_state.to(f32))
+    mask = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()[None, :, :, None]
+    ys = []
+    for c in range(nc):
+        xc, dtc, ldc = xh[:, c].to(f32), dt[:, c].to(f32), logdec[:, c].to(f32)
+        bc, cc = bmat[:, c].to(f32), cmat[:, c].to(f32)
+        cum = torch.cumsum(ldc, dim=1)                           # (B, L, H)
+        xw = xc * dtc[..., None]                                 # (B, L, H, P)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]           # (B, L, L, H)
+        dec = torch.exp(torch.where(mask, diff, -torch.inf))
+        att = (cc @ bc.transpose(1, 2))[..., None] * dec         # (B, L, L, H)
+        y_intra = torch.einsum("blmh,bmhp->blhp", att, xw)
+        y_inter = torch.einsum("bln,bhpn->blhp", cc, state) * torch.exp(cum)[..., None]
+        tail = torch.exp(cum[:, -1:, :] - cum)                   # decay to the chunk's end
+        bx = torch.einsum("blhp,bln->bhpn", xw * tail[..., None], bc)
+        state = state * torch.exp(cum[:, -1])[:, :, None, None] + bx
+        ys.append((y_intra + y_inter).to(xh.dtype))
+    return torch.stack(ys, dim=1), state

@@ -8,11 +8,12 @@ Two backends:
   double-sampling pair is two independent zipml draws from a split key
   (``ds_pair_jnp``), the LSQ gradient f32 matvecs on the decoded pair; the
   quantized AdamW update decodes, updates and re-encodes each moment with
-  its own key.
+  its own key; the SSD chunk scan is the einsum form of the reference's
+  ``models/ssm.ssd_chunked``.
 * ``cuda`` — the hand-written Hopper kernels (``csrc/qmm.cu``,
   ``csrc/qmm_t.cu``, ``csrc/qmm_qout.cu``, ``csrc/qmm_bitplane.cu``,
   ``csrc/paged_attn.cu``, ``csrc/ds_quant.cu``, ``csrc/qmv.cu``,
-  ``csrc/quant_adamw.cu``; level-table
+  ``csrc/quant_adamw.cu``, ``csrc/stoch_quant.cu``, ``csrc/ssd.cu``; level-table
   weights take the reference's decode fallback, as no kernel of the
   reference streams them). Given CUDA
   tensors it launches them or raises — it never hands work to a plain
@@ -127,6 +128,14 @@ class KernelBackend:
         m_q = encode_moment(torch.where(finite, m, m_prev), bits, km)
         v_q = encode_moment(torch.where(finite, v, v_prev), bits, kv, positive=True)
         return new_master, m_q, v_q
+
+    def ssd_chunked(self, xh, dt, a_log, b_mat, c_mat, *, chunk: int,
+                    init_state=None):
+        """Mamba2's chunked SSD scan, (y, final state): the einsum form
+        (``ops.ssd_chunked_plain``), differentiable."""
+        from . import ops
+
+        return ops.ssd_chunked_plain(xh, dt, a_log, b_mat, c_mat, chunk, init_state)
 
     # the tuple-form hot loop of the linear-model path: the two decoded
     # draws, the storage form (codes1, codes2, scale), and the symmetrized
@@ -280,6 +289,15 @@ class _CudaBackend(KernelBackend):
         from . import ops
 
         return ops.quant_dense_bitplane(x, qt.codes, scale, qt.scheme.vec_dim)
+
+    def ssd_chunked(self, xh, dt, a_log, b_mat, c_mat, *, chunk: int,
+                    init_state=None):
+        """The SSD kernel (``ssd_chunk_scan``); it has no backward, so inputs
+        that require a gradient raise rather than fall back to the plain
+        scan."""
+        from . import ops
+
+        return ops.ssd_chunked_kernel(xh, dt, a_log, b_mat, c_mat, chunk, init_state)
 
     def paged_attention(self, q, k_pages, v_pages, k_scale, v_scale,
                         block_table, seq_lens, *, softmax_scale):

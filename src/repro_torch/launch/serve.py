@@ -1,6 +1,6 @@
 """Serving launcher of the port — a thin CLI over the continuous-batching
-engine (port of ``repro.launch.serve``: ``make_trace``, single-replica
-``serve_engine`` and ``main``).
+engine (port of ``repro.launch.serve``: the legacy ``serve``,
+``make_trace``, single-replica ``serve_engine`` and ``main``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       --device cpu --requests 4
@@ -27,6 +27,16 @@ token-identical to vanilla decode):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       --device cpu --requests 4 --weight-bits 8 --kv-bits 8 --optimal-levels
 
+Legacy single-shot mode (``serve``: one fixed random prompt batch, prefill,
+then greedy decode) serves the ssm family, which the paged engine does not
+take — mamba2-780m's prefill runs the SSD kernel, its decode the O(1)
+recurrence on the (conv, ssm) cache:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --device cpu --legacy --batch 2 --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --legacy --no-reduced --weight-bits 8 --batch 4 --prompt-len 1024 --gen 32
+
 Multi-replica serving, prefix caching, chunked prefill and sampling wait
 for ROADMAP A3.
 """
@@ -34,10 +44,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import numpy as np
+import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs, prng, resolve_device
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as T
 from repro_torch.precision.qat import quantize_param_tree
 from repro_torch.quant import PrecisionPlan
@@ -64,6 +77,53 @@ def _build(arch: str, *, reduced: bool, plan: PrecisionPlan, seed: int, device,
             optimal=plan.optimal_levels and weight_layout == "dense",
             layout=weight_layout)
     return cfg, params
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, *, reduced: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 16, kv_bits: int = 0,
+          weight_bits: int = 0, optimal_levels: bool = False, seed: int = 0,
+          plan: PrecisionPlan | None = None, device=None):
+    """Legacy single-shot serve on ``device`` (default ``cuda``): greedy-decode
+    ``gen`` tokens for one random fixed-length prompt batch (the reference's
+    ``randint(fold_in(PRNGKey(seed), 1))`` draw) with random weights from
+    ``seed``. A warm-up decode step runs and is thrown away before the
+    clock starts (``decode_step`` never writes into the state it is given).
+    Returns (tokens (B, prompt+gen) numpy int32, steady-state tokens/s over
+    the ``gen − 1`` timed steps; NaN when ``gen`` is 1).
+
+    The ssm family only: the dense family's ring-buffer decode waits for
+    ROADMAP A6 (``serve_engine`` serves it)."""
+    family = (configs.get_reduced if reduced else configs.get_config)(arch).family
+    if family != "ssm":
+        raise NotImplementedError(
+            f"legacy serve of the {family!r} family needs the ring-buffer "
+            "decode_step (ROADMAP A6); use serve_engine")
+    dev = resolve_device(device)
+    plan = _resolve_plan(plan, kv_bits, weight_bits, optimal_levels)
+    cfg, params = _build(arch, reduced=reduced, plan=plan, seed=seed, device=dev)
+    prompts = prng.randint(prng.fold_in(prng.PRNGKey(seed), 1), (batch, prompt_len),
+                           0, cfg.vocab_size, device=dev)
+    logits, state = make_prefill_step(cfg)(params, {"tokens": prompts})
+    next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    step_fn = make_serve_step(cfg)
+    step_fn(params, state, next_tok)                    # warm-up, thrown away
+    _sync(dev)
+
+    out = [prompts, next_tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        _, nxt, state = step_fn(params, state, out[-1])
+        out.append(nxt[:, None])
+    tokens = torch.cat(out, dim=1)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    tps = batch * (gen - 1) / decode_s if gen > 1 else float("nan")
+    return tokens.cpu().numpy(), tps
 
 
 def make_trace(n_requests: int, vocab_size: int, *, max_new: int = 16,
@@ -189,12 +249,29 @@ def main(argv=None):
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    # legacy single-shot mode
+    ap.add_argument("--legacy", action="store_true",
+                    help="fixed-batch greedy loop on the recurrent cache (ssm)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     args = ap.parse_args(argv)
     allowed = range(1, 9) if args.weight_layout == "bitplane" else (4, 8)
     if args.weight_bits and args.weight_bits not in allowed:
         ap.error(f"--weight-bits {args.weight_bits} is not servable with "
                  f"--weight-layout {args.weight_layout} (allowed: 0, "
                  f"{', '.join(map(str, allowed))})")
+
+    if args.legacy:
+        tokens, tps = serve(args.arch, reduced=args.reduced, batch=args.batch,
+                            prompt_len=args.prompt_len, gen=args.gen,
+                            kv_bits=args.kv_bits, weight_bits=args.weight_bits,
+                            optimal_levels=args.optimal_levels, seed=args.seed,
+                            device=args.device)
+        print(f"[serve] generated {tokens.shape} tokens at {tps:.1f} tok/s "
+              f"steady-state (kv_bits={args.kv_bits}, "
+              f"weight_bits={args.weight_bits}) on {args.device}")
+        return
 
     engine, results = serve_engine(
         args.arch, reduced=args.reduced, n_requests=args.requests,

@@ -1,17 +1,20 @@
-"""Model assembly for the dense family (port of
+"""Model assembly for the dense and ssm families (port of
 ``repro.models.transformer``): ``ModelConfig``, ``init_params``, the
-training ``forward`` and ``loss_fn``, ``prefill`` and the single-token
-decode block.
+training ``forward`` and ``loss_fn``, ``prefill``, the single-token decode
+block of the dense family (the paged engine's), and the ssm family's
+``DecodeState``, ``init_decode_state`` and ``decode_step`` (the O(1)
+recurrent decode of the legacy serve loop).
 
 ``lax.scan`` over stacked layers becomes a Python loop over per-layer views
 of the same stacked tensors; the training forward rematerializes each layer
 in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
-reference's ``jax.checkpoint`` does. MoE, SSM, hybrid and VLM families wait
-for ROADMAP A6.
+reference's ``jax.checkpoint`` does. MoE, hybrid and VLM families, and the
+dense family's ring-buffer ``decode_step``, wait for ROADMAP A6.
 """
 from __future__ import annotations
 
 import dataclasses
+import typing
 from typing import Any
 
 import torch
@@ -20,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.quant import PrecisionPlan
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
                      layer_view, mlp, rmsnorm, unembed, unstack_layers)
 
@@ -27,7 +31,7 @@ from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # only 'dense' is ported
+    family: str                 # 'dense' or 'ssm' in the port
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,6 +45,10 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     attn_shard: str = "heads"
     q_chunk: int = 1024
+    # ssm
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssd_chunk: int = 256
     dtype: Any = torch.bfloat16
     logit_chunk: int = 512
     tie_embeddings: bool = True
@@ -58,12 +66,28 @@ class ModelConfig:
                              window=self.window, rope_theta=self.rope_theta,
                              q_chunk=self.q_chunk)
 
+    @property
+    def ssm_spec(self) -> ssm_mod.SSMSpec:
+        return ssm_mod.SSMSpec(self.d_model, d_state=self.ssm_state,
+                               head_dim=self.ssm_head_dim, chunk=self.ssd_chunk)
 
-def _check_dense(cfg: ModelConfig):
+
+def _check_family(cfg: ModelConfig):
+    """The ported families: dense (tied embeddings, no window, no qkv bias)
+    and ssm (tied embeddings). An ssm config with ``kv_bits`` raises: it has
+    no KV cache to quantize (the reference ignores the request; ROADMAP
+    C18)."""
+    if cfg.family == "ssm" and cfg.tie_embeddings:
+        if cfg.precision.kv_bits:
+            raise ValueError(
+                f"{cfg.name}: kv_bits={cfg.precision.kv_bits} on an ssm model, "
+                "which has no KV cache to quantize (the reference ignores it; "
+                "ROADMAP C18)")
+        return
     if cfg.family != "dense" or cfg.window or cfg.qkv_bias or not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: only the dense family with tied embeddings, no "
-            "window and no qkv bias is ported (ROADMAP A6)")
+            "window and no qkv bias, and the ssm family, are ported (ROADMAP A6)")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
@@ -73,16 +97,23 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     compare). Layer weights are stacked (L, …)."""
     from repro_torch import resolve_device
 
-    _check_dense(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     L, dt = cfg.n_layers, cfg.dtype
     kw = dict(lead=(L,), dtype=dt, device=dev)
-    return {
+    params = {
         "embed": init_embedding(gen, cfg.vocab_padded, cfg.d_model, dtype=dt,
                                 device=dev),
         "final_norm": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
+    }
+    if cfg.family == "ssm":
+        params["layers"] = {"norm": init_rmsnorm(cfg.d_model, **kw),
+                            "mamba": ssm_mod.init_mamba2(gen, cfg.ssm_spec, **kw)}
+        return params
+    return {
+        **params,
         "layers": {
             "ln1": init_rmsnorm(cfg.d_model, **kw),
             "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads,
@@ -113,6 +144,9 @@ def final_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Ten
 
 
 def _layer_fwd(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.family == "ssm":
+        return x + ssm_mod.mamba2_forward(layer["mamba"], rmsnorm(layer["norm"], x),
+                                          cfg.ssm_spec)
     h = x + attn.attention_block(layer["attn"], rmsnorm(layer["ln1"], x), cfg.attn_spec)
     return h + mlp(layer["mlp"], rmsnorm(layer["ln2"], h), cfg.mlp_act)
 
@@ -121,8 +155,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     """tokens (B, S) → final-normed hidden states (B, S, d), differentiable
     (weights may be dense, QTensor or ShipWeight leaves). Each layer is
     recomputed in the backward when ``cfg.remat`` (the saved state is one
-    (B, S, d) carry per layer)."""
-    _check_dense(cfg)
+    (B, S, d) carry per layer). The ssm family runs forward only: the SSD
+    kernel has no backward, so on the card its gradient raises (ROADMAP
+    A6, ssm training); the plain scan on the CPU is differentiable."""
+    _check_family(cfg)
     if cfg.precision.act_bits:
         raise NotImplementedError(
             "act_bits: the reference does not wire act_bits into its model "
@@ -167,8 +203,14 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     (default the last position), (k, v)) with the raw post-RoPE K/V of every
     layer stacked as (L, B, S, Hkv, D) — what the paged pool quantizes.
     The serving engine right-pads prompts to a page multiple; causality
-    keeps positions ≤ last_pos unaffected by the padding."""
-    _check_dense(cfg)
+    keeps positions ≤ last_pos unaffected by the padding.
+
+    The ssm family returns (logits, :class:`DecodeState`) instead: every
+    layer's ``MambaCache`` stacked (conv (L, B, K−1, conv_dim), ssm (L, B,
+    H, P, N) f32), ``step`` the prompt length — decode continues from it."""
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        return _prefill_ssm(params, tokens, cfg, last_pos, layers)
     if cfg.precision.kv_bits:
         raise NotImplementedError(
             "prefill fills raw K/V only (kv_bits=0); the paged pool "
@@ -194,3 +236,79 @@ def decode_layer_block(cfg: ModelConfig, layer: Params, h: torch.Tensor,
     residual (``attend(z)`` owns the cache update), then pre-norm MLP."""
     h = h + attend(rmsnorm(layer["ln1"], h))
     return h + mlp(layer["mlp"], rmsnorm(layer["ln2"], h), cfg.mlp_act)
+
+
+# ---------------------------------------------------------------------------
+# The ssm family's recurrent decode (the legacy serve loop's cache)
+# ---------------------------------------------------------------------------
+
+class DecodeState(typing.NamedTuple):
+    """Per-layer caches + step counter. The ssm family's ``layers`` is one
+    ``MambaCache`` of stacked (L, …) tensors."""
+
+    layers: Any
+    shared: Any = None
+    cross: Any = None
+    step: Any = None
+
+
+def _stack_caches(caches) -> ssm_mod.MambaCache:
+    return ssm_mod.MambaCache(conv=torch.stack([c.conv for c in caches]),
+                              ssm=torch.stack([c.ssm for c in caches]))
+
+
+def _prefill_ssm(params, tokens, cfg, last_pos, layers):
+    layers = layers if layers is not None else layer_views(params, cfg)
+    x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
+    caches = []
+    for layer in layers:
+        out, mc = ssm_mod.mamba2_forward(layer["mamba"], rmsnorm(layer["norm"], x),
+                                         cfg.ssm_spec, return_state=True)
+        x = x + out
+        caches.append(mc)
+    pos = x.shape[1] - 1 if last_pos is None else int(last_pos)
+    logits = final_logits(params, cfg, x[:, pos:pos + 1])[:, 0]
+    return logits, DecodeState(_stack_caches(caches), step=tokens.shape[1])
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
+                      device=None) -> DecodeState:
+    """Zero caches for ``batch`` sequences on ``device`` (default ``cuda``).
+    The ssm family's cache is O(1) in the sequence (``smax`` is unused);
+    its conv cache is bf16 whatever the compute dtype, as in the reference.
+    The dense family's ring-buffer cache waits for ROADMAP A6 (the paged
+    engine serves it)."""
+    from repro_torch import resolve_device
+
+    _check_family(cfg)
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            "the dense family's ring-buffer decode state (ROADMAP A6); serve "
+            "it through serve.ServeEngine")
+    dev = resolve_device(device)
+    one = ssm_mod.init_mamba_cache(batch, cfg.ssm_spec, device=dev)
+    return DecodeState(ssm_mod.MambaCache(
+        conv=one.conv.expand(cfg.n_layers, *one.conv.shape).clone(),
+        ssm=one.ssm.expand(cfg.n_layers, *one.ssm.shape).clone()), step=0)
+
+
+def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One serve step of the ssm family: tokens (B, 1) → (logits (B, 1, V)
+    f32 with the vocab pad masked, new state). ``state`` is only read: the
+    new state's tensors are new, so a discarded step leaves it as it was."""
+    _check_family(cfg)
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            "the dense family's ring-buffer decode_step (ROADMAP A6); serve it "
+            "through serve.ServeEngine")
+    x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
+    caches = []
+    for i, layer in enumerate(layer_views(params, cfg)):
+        cache = ssm_mod.MambaCache(state.layers.conv[i], state.layers.ssm[i])
+        y, new_cache = ssm_mod.mamba2_decode_step(
+            layer["mamba"], rmsnorm(layer["norm"], x), cache, cfg.ssm_spec)
+        x = x + y
+        caches.append(new_cache)
+    return final_logits(params, cfg, x), DecodeState(_stack_caches(caches),
+                                                     step=state.step + 1)

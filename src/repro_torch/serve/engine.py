@@ -70,6 +70,10 @@ from repro_torch.quant import PrecisionPlan, QTensor, tree_nbytes
 from repro_torch.serve import pages as pg
 
 SUPPORTED_FAMILIES = ("dense",)
+# families whose caches the reference's engine does not page either (it
+# raises the same ValueError); the ssm family serves through the legacy loop,
+# ``launch.serve.serve``
+UNPAGED_FAMILIES = ("ssm", "hybrid", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +118,10 @@ class ServeEngine:
                  prefix_cache: bool = False, chunk_pages: int | None = None,
                  spec_decode: int = 0, draft_bits: int | None = None,
                  fault_injector=None):
+        if cfg.family in UNPAGED_FAMILIES:
+            raise ValueError(
+                f"ServeEngine supports {SUPPORTED_FAMILIES} families, "
+                f"got {cfg.family!r} (SSM/hybrid/VLM caches are not paged yet)")
         if cfg.family not in SUPPORTED_FAMILIES:
             raise NotImplementedError(
                 f"ServeEngine serves {SUPPORTED_FAMILIES} in the port, got "

@@ -25,7 +25,11 @@ product), and against its plain version (f32 sums in another order) codes
 that differ only where the two y differ after the cast or the row scales
 differ, on at most 1e-4 of the elements; the reduced model with quantized
 embedding tables served on the card against the CPU's plain path: greedy
-tokens equal.
+tokens equal; ``ssd_chunk_scan`` 1e-4 (rtol and atol) at f32 and 2e-2 at
+bf16 against its plain version, the reference's tolerances for its Pallas
+kernel (f32 sums in another order; at bf16 y rounds once more), and the
+reduced mamba2-780m served on the card against the CPU's plain path:
+greedy tokens equal.
 """
 import numpy as np
 import pytest
@@ -41,6 +45,7 @@ from repro_torch.kernels import qmm_t as tqmm_t
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import quant_adamw as tqa
 from repro_torch.kernels import qmv as tqmv
+from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels import stoch_quant as tsq
 from repro_torch.serve import pages as tpg
 
@@ -664,3 +669,108 @@ def test_quantized_table_engine_card_matches_cpu_plain_path(cuda, bits):
         toks[str(where)] = {r: f.tokens.tolist() for r, f in res.items()}
     assert tqmm_t.launches > before
     assert toks[str(cuda)] == toks["cpu"]
+
+
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (B, NC, L, H, P, N): ragged tiles, mamba2-780m's prefill (4 chunks of 256)
+# and the single 1023-row chunk of a 1023-token prompt
+SSD_SHAPES = [(2, 3, 40, 3, 16, 16), (1, 2, 33, 2, 64, 8), (4, 4, 256, 48, 64, 128),
+              (4, 1, 1023, 48, 64, 128)]
+
+
+def _ssd_inputs(dev, b, nc, L, h, p, n, dtype, init=False, strided=False, seed=0):
+    """x N(0, .25), dt = softplus(N(0, 1) − 1), logdec = dt · −(1..H), B and C
+    N(0, .09) in ``dtype``; ``strided`` cuts x, B and C out of one wider
+    projection row, as the model's views are."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(device=dev, dtype=torch.float32)
+    row = torch.randn(b, nc, L, h * p + 2 * n + 5, generator=g, **f32)
+    row[..., :h * p] *= 0.5
+    row[..., h * p:] *= 0.3
+    row = row.to(dtype)
+    x = row[..., :h * p].reshape(b, nc, L, h, p)
+    bm, cm = row[..., h * p:h * p + n], row[..., h * p + n:h * p + 2 * n]
+    if not strided:
+        x, bm, cm = x.contiguous(), bm.contiguous(), cm.contiguous()
+    dt = torch.nn.functional.softplus(torch.randn(b, nc, L, h, generator=g, **f32) - 1)
+    logdec = dt * -torch.arange(1, h + 1, **f32)
+    st = torch.randn(b, h, p, n, generator=g, **f32) if init else None
+    return x, dt, logdec, bm, cm, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_chunk_scan_kernel_matches_plain(cuda, shape, dtype, init):
+    args = _ssd_inputs(cuda, *shape, dtype, init=init, strided=shape[0] == 2)
+    before = tssd.launches
+    y, st = tssd.ssd_chunk_scan(*args)
+    assert tssd.launches == before + 1
+    y_ref, st_ref = tssd.ssd_chunk_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_ssd_gradient_on_card_raises(cuda):
+    x, *rest = _ssd_inputs(cuda, 1, 2, 8, 2, 16, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tssd.ssd_chunk_scan(x.requires_grad_(), *rest)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bits", [(torch.float32, 0), (torch.float32, 8),
+                                        (torch.bfloat16, 8)])
+def test_mamba_legacy_path_card_matches_cpu_plain_path(cuda, dtype, bits):
+    """Reduced mamba2-780m: prefill (prompt 40 = one chunk, 64 = four of 16)
+    and 8 greedy decode steps on the card (``ssd_chunk_scan``, ``qmm``)
+    against the CPU's plain path from the same weights: equal tokens, and at
+    f32 logits within 1e-4 of the largest. Both run the ``cuda`` backend: on
+    the CPU that is the kernels' plain versions (the ``ref`` backend decodes
+    an f32 product's weights at bf16 scales, the reference's jitted ``ref``
+    numerics, C4)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+
+    cfg = dataclasses.replace(configs.get_reduced("mamba2-780m", dtype=dtype), ssd_chunk=16)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    if bits:
+        params = quantize_param_tree(params, bits=bits)
+    step = make_serve_step(cfg)
+    for s in (40, 64):
+        prompt = torch.from_numpy(np.random.default_rng(s).integers(0, cfg.vocab_size, (2, s)))
+        runs = {}
+        for where in (cuda, "cpu"):
+            p = params if where == "cpu" else _to(params, cuda)
+            before = tssd.launches
+            with registry.using("cuda"):      # on the CPU: the kernels' plain versions
+                logits, state = T.prefill(p, prompt.to(where), cfg)
+                toks, lgs = [torch.argmax(logits, -1).to(torch.int32)[:, None]], [logits]
+                for _ in range(8):
+                    lg, nxt, state = step(p, state, toks[-1])
+                    toks.append(nxt[:, None])
+                    lgs.append(lg[:, 0])
+            runs[str(where)] = (torch.cat(toks, 1).cpu(), [t.float().cpu() for t in lgs])
+            if where != "cpu":
+                assert tssd.launches == before + cfg.n_layers
+        (tc, lc), (tp, lp) = runs[str(cuda)], runs["cpu"]
+        assert torch.equal(tc, tp)
+        if dtype == torch.float32:
+            for a, b in zip(lc, lp):
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
