@@ -17,24 +17,27 @@
 //   u1 = (rand >> 16) · 2⁻¹⁶, u2 = (rand & 0xFFFF) · 2⁻¹⁶,
 // a NaN t giving code 0, as the reference's cast of NaN to int8 does.
 //
-// Design: two launches. The first is qmm's own split-K block kernel
-// (qmm_core.cuh, the same source as csrc/qmm.cu), which always writes its
-// f32 partials to a (splits, M, N) scratch plane; with one split that plane
-// is y itself. The second, one block per row of y, sums the partials in
-// qmm's fixed order (qmm's splitk_reduce), rounds to out_dtype, reduces the
-// row absmax in shared memory (the absmax spans the whole N, so every N
-// tile must be summed before any element is encoded), then sums the
-// partials again and encodes both planes. So the output equals the port's
-// unfused qmm → cast → encode pipeline bit for bit. Each operation of the
-// encode rounds on its own (__fdiv_rn, __fsub_rn, __fmul_rn, __fadd_rn), as
-// in csrc/ds_quant.cu: nvcc's FMA contraction flipped codes there.
+// Design: two launches. The first is qmm's own product (qmm_core.cuh, the
+// same source as csrc/qmm.cu) on the core and K splits that
+// kernels/qmm.py · plan gives qmm for the same operands: the SIMT core at
+// decode M and for f32 x, the bf16 tensor-core core above plan's threshold.
+// It always writes its f32 partials to a (splits, M, N) scratch plane;
+// with one split that plane is y itself. The second, one block per row of
+// y, sums the partials in qmm's fixed order (qmm's splitk_reduce), rounds
+// to out_dtype, reduces the row absmax in shared memory (the absmax spans
+// the whole N, so every N tile must be summed before any element is
+// encoded), then sums the partials again and encodes both planes. So the
+// output equals the port's unfused qmm → cast → encode pipeline bit for
+// bit, at every M, on either core. Each operation of the encode rounds on
+// its own (__fdiv_rn, __fsub_rn, __fmul_rn, __fadd_rn), as in
+// csrc/ds_quant.cu: nvcc's FMA contraction flipped codes there.
 //
 // What bounds it on an H100: at the training batch (M 2048) the product's
-// 2·M·K·N operations at the bf16 tensor-core rate, which the f32 CUDA-core
-// qmm blocks do not reach (ROADMAP P2); at decode (M 4) the code bytes.
-// The epilogue moves the partials twice, the rand plane (4 bytes per
-// element, the largest input at M 2048) and the two planes once. wgmma and
-// TMA tiles are later work.
+// 2·M·K·N operations at the bf16 tensor-core rate (the product's design
+// notes are in qmm.cu); at decode (M 4) the code bytes. The epilogue moves
+// the partials twice, the rand plane (4 bytes per element, the largest
+// input at M 2048) and the two planes once; at decode M its one block per
+// row leaves most SMs idle (ROADMAP P6).
 #include "qmm_core.cuh"
 
 namespace {
@@ -105,17 +108,12 @@ qout_epilogue(const float* __restrict__ part, const uint32_t* __restrict__ rand,
   }
 }
 
-template <typename XT, bool PACKED>
-cudaError_t launch(const void* x, const uint8_t* codes, const float* scale,
-                   const uint32_t* rand, float* part, int8_t* c1, int8_t* c2,
-                   float* oscale, int M, int K, int N, int splits, int qmax,
-                   int out_bf16, cudaStream_t stream) {
-  constexpr int BN = 32 * (PACKED ? 8 : 4);
-  const int k_chunk = (K + splits - 1) / splits;
-  dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM, splits);
-  qmm_kernel<XT, PACKED><<<grid, kThreads, 0, stream>>>(
-      static_cast<const XT*>(x), codes, scale, part, M, K, N, k_chunk);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch(int core, int x_bf16, const void* x, const uint8_t* codes, int packed,
+                   const float* scale, const uint32_t* rand, float* part, int8_t* c1,
+                   int8_t* c2, float* oscale, int M, int K, int N, int splits, int k_chunk,
+                   int qmax, int out_bf16, cudaStream_t stream) {
+  cudaError_t err = launch_product(core, x_bf16, x, codes, packed, scale, part, M, K, N,
+                                   splits, k_chunk, stream);
   if (err != cudaSuccess) return err;
   if (out_bf16)
     qout_epilogue<true><<<M, kEpiThreads, 0, stream>>>(part, rand, c1, c2, oscale, M, N,
@@ -129,30 +127,21 @@ cudaError_t launch(const void* x, const uint8_t* codes, const float* scale,
 }  // namespace
 
 // (codes1, codes2) int8 (M, N) and row scales (M) f32 of the DS pair of
-// cast_out(x (M, K) · dequant(codes, scale)). x_bf16 selects the x type
-// (else f32), packed the (K, N/2) int4 codes (else (K, N) int8), out_bf16
-// rounds y to bf16 before the encode (else f32). part is a (splits, M, N)
-// f32 scratch plane. Returns the cudaError_t of the launches (0 = success).
+// cast_out(x (M, K) · dequant(codes, scale)), the product on plan's core
+// (0 SIMT, 1 tensor cores) with K in `splits` slices of k_chunk rows. x_bf16
+// selects the x type (else f32), packed the (K, N/2) int4 codes (else
+// (K, N) int8), out_bf16 rounds y to bf16 before the encode (else f32).
+// part is a (splits, M, N) f32 scratch plane. Returns the cudaError_t of
+// the launches (0 = success).
 extern "C" int qmm_qout_launch(const void* x, int x_bf16, const void* codes, int packed,
-                               const float* scale, const void* rand, float* part,
-                               void* c1, void* c2, float* oscale, int M, int K, int N,
-                               int splits, int qmax, int out_bf16, void* stream) {
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const uint32_t* r = static_cast<const uint32_t*>(rand);
-  int8_t* o1 = static_cast<int8_t*>(c1);
-  int8_t* o2 = static_cast<int8_t*>(c2);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return packed
-        ? launch<__nv_bfloat16, true>(x, c, scale, r, part, o1, o2, oscale, M, K, N, splits,
-                                      qmax, out_bf16, s)
-        : launch<__nv_bfloat16, false>(x, c, scale, r, part, o1, o2, oscale, M, K, N, splits,
-                                       qmax, out_bf16, s);
-  return packed
-      ? launch<float, true>(x, c, scale, r, part, o1, o2, oscale, M, K, N, splits, qmax,
-                            out_bf16, s)
-      : launch<float, false>(x, c, scale, r, part, o1, o2, oscale, M, K, N, splits, qmax,
-                             out_bf16, s);
+                               const float* scale, const void* rand, float* part, void* c1,
+                               void* c2, float* oscale, int M, int K, int N, int core,
+                               int splits, int k_chunk, int qmax, int out_bf16,
+                               void* stream) {
+  return launch(core, x_bf16, x, static_cast<const uint8_t*>(codes), packed, scale,
+                static_cast<const uint32_t*>(rand), part, static_cast<int8_t*>(c1),
+                static_cast<int8_t*>(c2), oscale, M, K, N, splits, k_chunk, qmax, out_bf16,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* qmm_qout_error_string(int err) {

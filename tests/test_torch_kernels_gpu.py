@@ -6,7 +6,9 @@ reference, so it runs on the card's machine:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: ``qmm`` and ``qmv`` rel 1e-5 of the largest output (f32
-dequant, f32 accumulation order); paged attention abs 1e-5 (both f32 online
+accumulation order; ``qmm`` with bf16 x above ``qmm.TC_THRESHOLD`` rows
+multiplies on the tensor cores, exactly, as bf16 holds every code, and
+checks that core ran); paged attention abs 1e-5 (both f32 online
 softmax); ``ds_quant`` bit-exact (same rand, IEEE division, no FMA
 contraction); ``train_linear`` per-epoch losses rel 1e-5 between the card
 and the CPU's plain path (same keys, same codes; sums in another order);
@@ -23,7 +25,9 @@ row scales) against the unfused pipeline on the card (``qmm`` kernel → cast
 → ``ds_row_pair_ref``, the same rand plane: the kernel shares ``qmm``'s
 product), and against its plain version (f32 sums in another order) codes
 that differ only where the two y differ after the cast or the row scales
-differ, on at most 1e-4 of the elements; the reduced model with quantized
+differ, on at most 1e-4 of the elements, and against the pair encoded from
+the f64 product within 1e-4 of the codes or no farther than the plain
+version; the reduced model with quantized
 embedding tables served on the card against the CPU's plain path: greedy
 tokens equal; ``ssd_chunk_scan`` 1e-4 (rtol and atol) at f32 and 2e-2 at
 bf16 against its plain version, the reference's tolerances for its Pallas
@@ -48,9 +52,18 @@ from repro_torch.kernels import qmv as tqmv
 from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels import stoch_quant as tsq
 from repro_torch.serve import pages as tpg
+from repro_torch.quant.qtensor import unpack_int4
 
+EDGE = tqmm.TC_THRESHOLD
+# ragged and small shapes; both sides of plan's threshold (bf16 x takes the
+# tensor cores above it) and M 16; the gemma prefill's gate/up at M 112,
+# mamba2's in_proj at the consistency check's M 4092 (N 6448: no multiple
+# of 128; packed rows of 3224 bytes: no multiple of 16); a ragged K on the
+# tensor cores
 QMM_SHAPES = [(1, 40, 24), (5, 64, 48), (13, 96, 130), (4, 130, 256),
-              (4, 2048, 256), (128, 2048, 2048)]
+              (4, 2048, 256), (128, 2048, 2048), (16, 2048, 2048), (EDGE, 2048, 2048),
+              (EDGE + 1, 2048, 2048), (112, 2048, 16384), (4092, 1536, 6448),
+              (130, 1001, 1000), (33, 96, 130)]
 
 
 @pytest.fixture
@@ -90,13 +103,62 @@ def test_qmm_kernel_matches_plain(cuda, m, k, n, bits, packed, xdtype):
     tq = _weights(k, n, bits, packed)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(0)).to(xdtype)
     codes, scale = tq.codes.to(cuda), tq.scale.to(cuda)
-    before = tqmm.launches
+    before = (tqmm.launches, tqmm.simt_launches, tqmm.tc_launches)
     got = tqmm.qmm(x.to(cuda), codes, scale, packed=packed)
     torch.cuda.synchronize()
-    assert tqmm.launches == before + 1
+    tc = int(xdtype == torch.bfloat16 and m > EDGE)
+    assert (tqmm.launches, tqmm.simt_launches, tqmm.tc_launches) == (
+        before[0] + 1, before[1] + 1 - tc, before[2] + tc)
     want = tqmm.qmm_plain(x.to(cuda), codes, scale, packed=packed)
     scale_ = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale_)
+
+
+def _offset_view(t, offset):
+    """``t``'s bytes copied into a contiguous view whose base lies ``offset``
+    bytes past a 256-byte-aligned allocation."""
+    buf = torch.empty(t.numel() + 64, dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, EDGE + 1, 130])
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+def test_qmm_kernel_reads_unaligned_code_views(cuda, m, bits, packed):
+    # a code plane whose base is 4 mod 16 (4-byte loads, not 16) and one
+    # that is 1 mod 16 (byte loads), read in place on either core
+    tq = _weights(96, 320, bits, packed, seed=3)
+    x = torch.randn(m, 96, generator=torch.Generator().manual_seed(1)).to(
+        cuda, torch.bfloat16)
+    want = tqmm.qmm_plain(x, tq.codes.to(cuda), tq.scale.to(cuda), packed=packed)
+    for offset in (4, 1):
+        codes = _offset_view(tq.codes.to(cuda), offset)
+        assert codes.data_ptr() % 16 == offset
+        tc0 = tqmm.tc_launches
+        got = tqmm.qmm(x, codes, tq.scale.to(cuda), packed=packed)
+        torch.cuda.synchronize()
+        assert tqmm.tc_launches - tc0 == int(m > EDGE)
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_qmm_kernel_reads_unaligned_x_rows(cuda):
+    # K 1001: bf16 rows of 2002 bytes, so the tensor-core core copies x in
+    # 2-byte pieces; a base 8 bytes past alignment takes 8-byte pieces
+    for k, x_off in ((1001, 0), (96, 4)):
+        tq = _weights(k, 256, 8, False, seed=4)
+        x = torch.randn(130, k, generator=torch.Generator().manual_seed(2)).to(
+            cuda, torch.bfloat16)
+        x = _offset_view(x, x_off)
+        assert x.data_ptr() % 16 == 2 * x_off
+        codes, scale = tq.codes.to(cuda), tq.scale.to(cuda)
+        got = tqmm.qmm(x, codes, scale)
+        want = tqmm.qmm_plain(x, codes, scale)
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
 
 
 @pytest.mark.gpu
@@ -569,7 +631,12 @@ def test_bitplane_engines_card_match_cpu_plain_path(cuda):
         assert toks[str(cuda)] == toks["cpu"], name
 
 
-QOUT_SHAPES = [(13, 1001, 1000), (4, 2048, 256), (128, 2048, 2048)]
+# ragged; decode and prefill; the training batch; both sides of plan's
+# threshold (bf16 x: the SIMT core at it, the tensor cores above), at
+# N 2048 so that the share of codes off the plain version counts at least
+# 32768 codes (one code in 6144, at N 384, is 1.6e-4)
+QOUT_SHAPES = [(13, 1001, 1000), (4, 2048, 256), (128, 2048, 2048), (2048, 2048, 256),
+               (EDGE, 2048, 2048), (EDGE + 1, 2048, 2048), (130, 1001, 1000)]
 
 
 @pytest.mark.gpu
@@ -586,11 +653,12 @@ def test_qmm_qout_kernel_bit_exact_vs_unfused(cuda, m, k, n, wbits, bits, xdtype
     x[min(2, m - 1)] = float("nan")                  # a NaN row: codes 0, scale NaN
     rand = torch.from_numpy(rng.integers(0, 2 ** 32, (m, n), dtype=np.uint32)
                             .view(np.int32)).to(cuda)
-    before = tqout.launches
+    before = (tqout.launches, tqout.tc_launches)
     c1, c2, sc = tqout.qmm_qout(x, tq.codes, tq.scale, rand, qmax=qmax, packed=packed,
                                 out_dtype=xdtype)
     torch.cuda.synchronize()
-    assert tqout.launches == before + 1
+    tc = int(xdtype == torch.bfloat16 and m > EDGE)
+    assert (tqout.launches, tqout.tc_launches) == (before[0] + 1, before[1] + tc)
     y = tqmm.qmm(x, tq.codes, tq.scale, packed=packed).to(xdtype)
     u1, u2, us = tref.ds_row_pair_ref(y, rand, qmax=qmax)
     assert torch.equal(c1, u1) and torch.equal(c2, u2)
@@ -608,6 +676,15 @@ def test_qmm_qout_kernel_bit_exact_vs_unfused(cuda, m, k, n, wbits, bits, xdtype
     assert not (diff1 & ~moved).any() and not (diff2 & ~moved).any()
     share = float((diff1.sum() + diff2.sum()) / (2 * m * n))
     assert share <= 1e-4, share
+    # the exact pair: the f64 product of the same x and integer codes (exact
+    # to far below an f32 ulp) → cast → encode. The kernel's codes lie within
+    # 1e-4 of it, or no farther from it than the plain version's
+    c = unpack_int4(tq.codes) if packed else tq.codes
+    y64 = (x.double() @ c.double()) * tq.scale.double().reshape(1, -1)
+    e1, e2, _ = tref.ds_row_pair_ref(y64.to(xdtype), rand, qmax=qmax)
+    off = int((c1 != e1).sum() + (c2 != e2).sum())
+    plain_off = int((p1 != e1).sum() + (p2 != e2).sum())
+    assert off <= max(plain_off, 1e-4 * 2 * m * n), (off, plain_off)
     assert int((c1.int() - c2.int()).abs().max()) <= 1
     assert int(c1.abs().max()) <= qmax and int(c2.abs().max()) <= qmax
 
