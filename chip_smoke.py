@@ -57,8 +57,13 @@ NVIDIA card.
    of the four; trains the reduced model at f32 on the card and on the CPU's
    plain path from one state and checks losses, masters and codes;
 6. slice 4 — checks ``qmm_bitplane`` (rel 1e-5) at 9 and 5 planes and the
-   serving path's shapes (decode M 4, verify window M 16, prefill M 128);
-   ``[serve-bitplane]`` writes full-width gemma-2b's 8-bit bitplane weights
+   serving path's shapes (decode M 4, verify window M 16, every prompt
+   bucket of the served trace, M 128), each on the core
+   ``qmm_bitplane.plan`` gives it (bf16 x: the tensor cores); ``[rows]``
+   holds each of those M's rows bit for bit against the same rows of the
+   M 128 product; ``[serve-bitplane]`` and ``[spec]`` fail on a launch at
+   an unchecked (P, M, K, N) or off the tensor cores; ``[serve-bitplane]``
+   writes full-width gemma-2b's 8-bit bitplane weights
    as a ``weights-bitplane-v1`` artifact under ``build/``, serves the same
    8-request trace at kv 8 from the artifact loaded back (``serve_engine(
    weight_layout="bitplane", ship_dir=...)``), then again at
@@ -199,9 +204,11 @@ TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=1)
 FREE_RUN_UPDATE_L2 = 5e-2
 # qmm_bitplane: the served 8-bit artifact (9 planes) and its 4-bit draft
 # view (5 planes), at decode (M 4 = the slots), the verify window (M 16 = 4
-# slots × (3 drafts + 1)) and prefill (M = the largest prompt bucket of the
+# slots × (3 drafts + 1)) and prefill (M = every prompt bucket of the
 # served trace, and 128, the largest there can be), for gemma-2b's (K, N):
-# q/o, k/v, gate/up, down; plus one ragged shape
+# q/o, k/v, gate/up, down; plus one ragged shape. Every row runs on the
+# core qmm_bitplane.plan gives its x (bf16: the tensor cores); the rows of
+# every M are held bit for bit against the M 128 product's
 QBP_PLANES = (9, 5)
 QBP_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 QBP_RAGGED = (13, 1001, 1000)
@@ -1288,26 +1295,37 @@ def _prompt_buckets() -> collections.Counter:
     return collections.Counter(-(-len(r.prompt) // page) * page for r in trace)
 
 
+def _qbp_ms() -> dict:
+    """The M at which ``[serve-bitplane]`` and ``[spec]`` launch
+    ``qmm_bitplane`` (decode, the verify window, each prompt bucket of the
+    served trace) and 128, the largest bucket there can be, with their
+    roles."""
+    buckets = _prompt_buckets()
+    verify_m = SERVE["max_slots"] * (SPEC["spec_decode"] + 1)
+    roles = {SERVE["max_slots"]: "decode", verify_m: "verify window"}
+    for m in sorted(buckets):
+        roles[m] = (roles[m] + " and " if m in roles else "") + f"prefill, bucket {m}"
+    if SERVE["max_prompt"] not in buckets:
+        roles[SERVE["max_prompt"]] = (f"prefill, bucket {SERVE['max_prompt']}: the largest, "
+                                      "no such prompt in the trace")
+    return roles
+
+
 def check_qmm_bitplane(dev, flush):
     """``qmm_bitplane`` against its plain version (rel 1e-5 of the largest
-    output) at the serving path's shapes with 9 and 5 planes, bf16 x; timed
-    beside the plain version, the bf16 ``torch.matmul`` on the decoded
-    weight and the bound (the code words, x, y and the scales over HBM
-    bandwidth, or 2·M·K·N at the bf16 rate: the codes are exact in bf16 and
-    the scale comes after the contraction)."""
+    output) at every M of the serving path (:func:`_qbp_ms`) × gemma-2b's
+    (K, N) with 9 and 5 planes, bf16 x; each row checks, through the
+    per-core counters, that it ran on the core ``plan`` gives; timed beside
+    the plain version, the bf16 ``torch.matmul`` on the decoded weight and
+    the bound (the code words, x, y and the scales over HBM bandwidth, or
+    2·M·K·N at the bf16 rate: the codes are exact in bf16 and the scale
+    comes after the contraction)."""
     import torch
     from repro_torch.kernels import qmm_bitplane as QBP
     from repro_torch.quant import QScheme, encode
 
-    buckets = _prompt_buckets()
-    verify_m, prefill_m = SERVE["max_slots"] * (SPEC["spec_decode"] + 1), max(buckets)
-    roles = {SERVE["max_slots"]: "decode", verify_m: "verify window",
-             prefill_m: f"prefill, bucket {prefill_m}",
-             SERVE["max_prompt"]: f"prefill, bucket {SERVE['max_prompt']}"}
-    if verify_m in buckets:
-        roles[verify_m] += f" and prefill, bucket {verify_m}"
-    if SERVE["max_prompt"] not in buckets:
-        roles[SERVE["max_prompt"]] += ": the largest, no such prompt in the trace"
+    roles, buckets = _qbp_ms(), _prompt_buckets()
+    verify_m = SERVE["max_slots"] * (SPEC["spec_decode"] + 1)
     shapes = [(m, k, n) for m in roles for k, n in QBP_KN]
     rows, weights = [], {}
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1320,7 +1338,13 @@ def check_qmm_bitplane(dev, flush):
             qt = weights[(k, n)].slice_planes(p - 1)
             planes = qt.codes.contiguous()
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            core = QBP.plan(k, n, x.dtype).core
+            before = {"simt": QBP.simt_launches, "tc": QBP.tc_launches}
             got = QBP.qmm_bitplane(x, planes, qt.scale)
+            ran = {c: getattr(QBP, f"{c}_launches") - before[c] for c in before}
+            if ran != {c: int(c == core) for c in ran}:
+                raise AssertionError(f"qmm_bitplane P{p} {m}x{k}x{n}: planned core {core}, "
+                                     f"ran {ran}")
             want = QBP.qmm_bitplane_plain(x, planes, qt.scale)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -1336,13 +1360,13 @@ def check_qmm_bitplane(dev, flush):
             nbytes = planes.numel() * 4 + x.numel() * 2 + m * n * 4 + n * 4
             bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
             role = roles.get(m, "ragged, off path")
-            if m == verify_m and p != 9 and verify_m not in buckets:
+            if m == verify_m and p != 9 and m not in buckets:
                 role = "verify-window shape; the window runs 9 planes: off path"
-            rows.append({"name": f"qmm_bitplane P{p} M{m} K{k} N{n} ({role})",
-                         "key": (p, m, k, n), "max_abs_err": err, "ms": ms,
+            rows.append({"name": f"qmm_bitplane P{p} M{m} K{k} N{n} ({role}; {core})",
+                         "key": (p, m, k, n), "core": core, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by})
-            print(f"[kernel] qmm_bitplane P={p} (M,K,N)=({m},{k},{n}) {role}: "
+            print(f"[kernel] qmm_bitplane P={p} (M,K,N)=({m},{k},{n}) {role}: core={core} "
                   f"max_err={err:.3e} (tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (bf16 matmul) "
                   f"bound_ms={bound_ms:.5f} ({bound_by}, {nbytes} bytes)", flush=True)
@@ -1352,6 +1376,68 @@ def check_qmm_bitplane(dev, flush):
     return rows
 
 
+def check_bitplane_rows(dev):
+    """Rows that do not depend on M: at every path (K, N) and at 9 and 5
+    planes, the rows of ``qmm_bitplane`` at each M of :func:`_qbp_ms`
+    (decode, the verify window, every prompt bucket), taken from row 0, 4
+    and 64 of one (128, K) bf16 x, equal bit for bit the same rows of the
+    M 128 product: the speculative verify window then computes exactly
+    what sequential decode computes. Returns the rows compared."""
+    import torch
+    from repro_torch.kernels import qmm_bitplane as QBP
+    from repro_torch.quant import QScheme, encode
+
+    ms = sorted(m for m in _qbp_ms() if m < 128)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    compared = {}
+    for k, n in QBP_KN:
+        w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+        full_qt = encode(w, QScheme.bitplane(8))
+        del w
+        x = torch.randn(128, k, generator=gen, device=dev).to(torch.bfloat16)
+        for p in QBP_PLANES:
+            qt = full_qt.slice_planes(p - 1)
+            planes = qt.codes.contiguous()
+            full = QBP.qmm_bitplane(x, planes, qt.scale)
+            n_rows = 0
+            for m in ms:
+                for start in (0, 4, 64):
+                    if start + m > 128:
+                        continue
+                    part = QBP.qmm_bitplane(x[start:start + m], planes, qt.scale)
+                    if not torch.equal(part, full[start:start + m]):
+                        bad = int((part != full[start:start + m]).any(dim=1).sum())
+                        raise AssertionError(
+                            f"[rows] qmm_bitplane P{p} K{k} N{n}: rows {start}..{start + m} "
+                            f"at M {m} differ from the M 128 product's in {bad} rows")
+                    n_rows += m
+            compared[f"P{p} K{k} N{n}"] = n_rows
+        del full_qt, x
+    print(f"[rows] qmm_bitplane rows at M {ms} (from rows 0, 4, 64) equal the M 128 "
+          f"product's bit for bit at {len(compared)} (P, K, N): {compared}", flush=True)
+    torch.cuda.empty_cache()
+    return {"ms": ms, "rows_compared": compared}
+
+
+def _bitplane_gate(what: str, checked) -> dict:
+    """Fail unless every ``qmm_bitplane`` launch since the counters were
+    reset ran at a (P, M, K, N) that a row of :func:`check_qmm_bitplane`
+    held against the plain version, and on the tensor cores (every main
+    path's activations are bf16, and ``plan`` gives bf16 x the tensor cores
+    at every M); returns the per-core counts."""
+    from repro_torch.kernels import qmm_bitplane as QBP
+
+    unchecked = set(QBP.shape_launches) - set(checked)
+    if unchecked:
+        raise AssertionError(f"{what}: qmm_bitplane launched at unchecked shapes "
+                             f"{sorted(unchecked)}")
+    got = {"simt": QBP.simt_launches, "tc": QBP.tc_launches}
+    if got != {"simt": 0, "tc": QBP.launches}:
+        raise AssertionError(f"{what}: qmm_bitplane launches by core {got} of {QBP.launches}, "
+                             "expected all on the tensor cores")
+    return got
+
+
 def _bitplane_counters(reset: bool = False):
     from repro_torch.kernels import paged_attn as PA
     from repro_torch.kernels import qmm as Q
@@ -1359,8 +1445,8 @@ def _bitplane_counters(reset: bool = False):
 
     if reset:
         Q.reset_counters()
-        PA.launches = QBP.launches = 0
-        QBP.shape_launches.clear()
+        QBP.reset_counters()
+        PA.launches = 0
     return {"qmm_bitplane": QBP.launches, "qmm": Q.launches,
             "paged_decode_attn": PA.launches}, dict(QBP.shape_launches)
 
@@ -1405,11 +1491,13 @@ def _code_bytes(params) -> int:
     return 4 * params.codes.numel() if isinstance(params, QTensor) else 0
 
 
-def serve_bitplane(dev):
+def serve_bitplane(dev, checked):
     """Slice 4's main path: full-width gemma-2b, 8-bit bitplane weights
     written as a weights-bitplane-v1 artifact under build/ and served from
     the artifact loaded back (kv 8), then at ``set_weight_bits(4)``; the
-    counters are set to 0 just before and read just after each run."""
+    counters are set to 0 just before and read just after each run, and
+    every ``qmm_bitplane`` launch must have run on the tensor cores at a
+    (P, M, K, N) in ``checked``."""
     import shutil
 
     import torch
@@ -1454,6 +1542,7 @@ def serve_bitplane(dev):
                                  f"expected {want}")
         if {key[0] for key in shapes} != {bits + 1}:
             raise AssertionError(f"[serve-bitplane] planes streamed {shapes}")
+        cores = _bitplane_gate(f"[serve-bitplane] {bits}-bit", checked)
         times = engine.decode_times[n_times:]
         code_bytes = _code_bytes(engine.params)
         run = {"weight_bits": bits, "kv_bits": 8, "tokens_generated": n_gen,
@@ -1463,7 +1552,8 @@ def serve_bitplane(dev):
                "weight_bytes": engine.weight_nbytes(), "code_bytes_streamed": code_bytes,
                "code_bytes_share": code_bytes / full_code_bytes,
                "kv_pool_bytes": engine.kv_pool_nbytes(), "wall_s": wall,
-               "launches": launches, "shape_launches": [[*k, c] for k, c in shapes.items()],
+               "launches": launches, "qmm_bitplane_cores": cores,
+               "shape_launches": [[*k, c] for k, c in shapes.items()],
                "tokens": {r: f.tokens.tolist() for r, f in results.items()}}
         if bits == 8:
             run["artifact_bytes"] = artifact_bytes
@@ -1480,7 +1570,8 @@ def serve_bitplane(dev):
               f"steady-state decode {run['decode_tokens_per_s']:.1f} tok/s "
               f"({run['mean_decode_step_ms']:.2f} ms/step); weights {run['weight_bytes']:,} "
               f"bytes, code bytes streamed {code_bytes:,} = {run['code_bytes_share']:.4f} "
-              f"of the artifact's; wall {wall:.1f} s; launches {launches}"
+              f"of the artifact's; wall {wall:.1f} s; launches {launches}, qmm_bitplane "
+              f"by core {cores}"
               + (f"; generated tokens equal to the 8-bit run's at the same position "
                  f"{run['generated_tokens_equal_to_8bit']}/{n_gen}" if bits == 4 else ""),
               flush=True)
@@ -1509,10 +1600,11 @@ def _logit_gap(engine, tokens: np.ndarray, pos: int):
     return float(top[0] - top[1])
 
 
-def spec_bitplane(dev, want_tokens, spec=SPEC, profile=True):
+def spec_bitplane(dev, want_tokens, checked, spec=SPEC, profile=True):
     """Self-speculative decoding on full-width gemma-2b: the same trace with
     ``spec`` (k 3, draft 4 bits) through ``serve_engine``; its tokens must
-    equal the 8-bit bitplane run's."""
+    equal the 8-bit bitplane run's, and every ``qmm_bitplane`` launch must
+    have run on the tensor cores at a (P, M, K, N) in ``checked``."""
     import torch
     from repro_torch.launch.serve import make_trace, serve_engine
 
@@ -1539,6 +1631,7 @@ def spec_bitplane(dev, want_tokens, spec=SPEC, profile=True):
     if launches != want or windows < 1:
         raise AssertionError(f"[spec] launches {launches} over {windows} windows, "
                              f"expected {want}")
+    cores = _bitplane_gate(f"[spec] draft {spec['draft_bits']}", checked)
     # the verify window runs every projection at M = slots × (k + 1) under
     # the 9 planes of the served 8 bits; a prompt of that bucket does too
     w_m = engine.max_slots * (k + 1)
@@ -1564,13 +1657,15 @@ def spec_bitplane(dev, want_tokens, spec=SPEC, profile=True):
            "acceptance_rate": engine.acceptance_rate(), "tokens_generated": n_gen,
            "ms_per_window": ms_window,
            "decode_tokens_per_s": engine.throughput(), "wall_s": wall, "build_s": build_s,
-           "launches": launches, "shape_launches": [[*key, c] for key, c in shapes.items()],
+           "launches": launches, "qmm_bitplane_cores": cores,
+           "shape_launches": [[*key, c] for key, c in shapes.items()],
            "stats": dict(st), "mismatches": mismatches}
     print(f"[spec] gemma-2b full width, bitplane 8-bit weights, kv 8, spec_decode={k} "
           f"draft_bits={spec['draft_bits']}: {len(results)} requests, {n_gen} tokens in "
           f"{windows} windows (+{vanilla} vanilla steps), acceptance "
           f"{out['acceptance_rate']:.4f}; {ms_window:.2f} ms/window, steady-state "
-          f"{out['decode_tokens_per_s']:.1f} tok/s; launches {launches}; tokens equal to "
+          f"{out['decode_tokens_per_s']:.1f} tok/s; launches {launches}, qmm_bitplane by "
+          f"core {cores}; tokens equal to "
           f"[serve-bitplane] 8-bit on {len(results) - len(mismatches)}/{len(results)} "
           f"requests", flush=True)
     if mismatches:
@@ -2980,6 +3075,7 @@ def main():
     qmm_t_rows = phase("kernel qmm_t", check_qmm_t, dev, flush)
     adamw_rows = phase("kernel quant_adamw", check_quant_adamw, dev, flush)
     qbp_rows = phase("kernel qmm_bitplane", check_qmm_bitplane, dev, flush)
+    qbp_same_rows = phase("rows qmm_bitplane", check_bitplane_rows, dev)
     absmax_rows = phase("kernel row_absmax", check_row_absmax, dev, flush)
     sq_rows = phase("kernel stoch_quant", check_stoch_quant, dev, flush)
     qout_rows = phase("kernel qmm_qout", check_qmm_qout, dev, flush)
@@ -3001,10 +3097,13 @@ def main():
     linear_small = phase("check linear", agree_linear, dev)
     training = phase("train", train_full, dev, checked)
     train_small = phase("check train", agree_train, dev)
-    bitplane = phase("serve-bitplane", serve_bitplane, dev)
-    spec = phase("spec", spec_bitplane, dev, bitplane[8]["tokens"])
+    # every qmm_bitplane launch of [serve-bitplane] and [spec] must be at a
+    # checked (P, M, K, N), on the tensor cores
+    qbp_checked = {r["key"] for r in qbp_rows}
+    bitplane = phase("serve-bitplane", serve_bitplane, dev, qbp_checked)
+    spec = phase("spec", spec_bitplane, dev, bitplane[8]["tokens"], qbp_checked)
     spec["control"] = phase("spec control", spec_bitplane, dev, bitplane[8]["tokens"],
-                            SPEC_CONTROL, profile=False)
+                            qbp_checked, SPEC_CONTROL, profile=False)
     bitplane_small = phase("check bitplane", agree_bitplane, dev)
     cheb = phase("cheb", cheb_path, dev, gisette)
     optimal = phase("optimal", optimal_path, dev)
@@ -3152,7 +3251,7 @@ def main():
               "serve": [runs[b][2] for b in (8, 4)], "small_agreement": small,
               "linear": linear, "linear_agreement": linear_small,
               "train": training, "train_agreement": train_small,
-              "serve_bitplane": bitplane, "spec": spec,
+              "serve_bitplane": bitplane, "spec": spec, "bitplane_rows": qbp_same_rows,
               "bitplane_agreement": bitplane_small, "quantize_rows": qrows, "cheb": cheb,
               "optimal": optimal, "serve_optimal": serve_opt, "cheb_agreement": cheb_small,
               "qmm_qout_extra": extra, "act_quant": act, "serve_embed": embed_run,

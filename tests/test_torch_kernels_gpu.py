@@ -527,10 +527,16 @@ def test_train_step_card_matches_cpu_plain_path(cuda):
 
 
 # qmm_bitplane at the serving path's (M, K, N): decode (M 4), the verify
-# window (M 16) and prefill (M 128) of gemma-2b's q/o, k/v, gate/up and down
-# projections, plus ragged M, K and N
+# window (M 16) and prefill (M 128; the served trace's largest prompt
+# bucket, M 112, at gate/up and down) of gemma-2b's q/o, k/v, gate/up and
+# down projections, plus ragged M, K and N (M 130: a full 128-row tile and
+# a 2-row one in one launch)
 QBP_SHAPES = [(4, 2048, 2048), (16, 2048, 256), (4, 2048, 16384), (4, 16384, 2048),
-              (128, 2048, 2048), (13, 1001, 1000), (1, 40, 24), (5, 64, 70)]
+              (128, 2048, 2048), (112, 2048, 16384), (112, 16384, 2048),
+              (13, 1001, 1000), (1, 40, 24), (5, 64, 70), (130, 1001, 1000)]
+# the prefill M of the served trace's prompt buckets (chip_smoke.py ·
+# _prompt_buckets: its 8 prompts rounded up to 16-token pages)
+QBP_BUCKETS = (48, 64, 80, 96, 112)
 _QBP_WEIGHTS = {}
 
 
@@ -556,10 +562,12 @@ def test_qmm_bitplane_kernel_matches_plain(cuda, m, k, n, planes, xdtype):
     qt = _bitplane_weights(k, n, cuda)
     codes = qt.codes[:planes]
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)).to(xdtype).to(cuda)
-    before = tqbp.launches
+    before, before_tc = tqbp.launches, tqbp.tc_launches
     got = tqbp.qmm_bitplane(x, codes, qt.scale)
     torch.cuda.synchronize()
     assert tqbp.launches == before + 1 and got.shape == (m, n)
+    # bf16 x runs on the tensor cores, f32 x on the SIMT core
+    assert tqbp.tc_launches == before_tc + int(xdtype == torch.bfloat16)
     want = tqbp.qmm_bitplane_plain(x, codes, qt.scale)
     if planes == 1:
         assert not got.any()
@@ -569,20 +577,24 @@ def test_qmm_bitplane_kernel_matches_plain(cuda, m, k, n, planes, xdtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (16384, 2048), (1001, 1000)])
-def test_qmm_bitplane_rows_do_not_depend_on_m(cuda, k, n):
-    """The K split depends on (K, N) only and each row is summed alone, so
-    a row of x gives the same bits at M = 4 (a decode step), 16 (a verify
-    window) and 128 (prefill)."""
+@pytest.mark.parametrize("planes", [9, 5])
+def test_qmm_bitplane_rows_do_not_depend_on_m(cuda, k, n, planes):
+    """The core and the K split depend on x's dtype and (K, N) only, and
+    each row is summed alone, so a row of x gives the same bits at M = 4 (a
+    decode step), 16 (a verify window), every prompt bucket of the served
+    trace and 128 (prefill), wherever it lies in the block of rows."""
     from repro_torch.kernels import qmm_bitplane as tqbp
 
     qt = _bitplane_weights(k, n, cuda)
+    codes = qt.codes[:planes]
     x = torch.randn(128, k, generator=torch.Generator().manual_seed(1)).to(
         torch.bfloat16).to(cuda)
-    full = tqbp.qmm_bitplane(x, qt.codes, qt.scale)
-    for m in (4, 16):
+    full = tqbp.qmm_bitplane(x, codes, qt.scale)
+    for m in (4, 16, *QBP_BUCKETS):
         for start in (0, 4, 64):
-            part = tqbp.qmm_bitplane(x[start:start + m], qt.codes, qt.scale)
-            assert torch.equal(part, full[start:start + m]), (m, start)
+            if start + m <= 128:
+                part = tqbp.qmm_bitplane(x[start:start + m], codes, qt.scale)
+                assert torch.equal(part, full[start:start + m]), (m, start)
 
 
 @pytest.mark.gpu
