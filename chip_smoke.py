@@ -45,14 +45,18 @@ NVIDIA card.
    convergence criterion (e2e final loss ≤ 1.4 × fp32 + 1e-4); profiles 20
    steps; then trains synthetic100 on the card and on the CPU's plain path
    and checks identical sample codes at every step and equal losses;
-5. slice 3 — checks ``qmm_t`` (rel 1e-5) and both ``quant_adamw`` passes
-   (the reference's contract) at the training path's shapes, then trains
+5. slice 3 — checks ``qmm_t`` (rel 1e-5, on the tensor-core core that
+   ``qmm_t.plan`` gives M 2048; the bound is the same work at the bf16
+   rate, the kernel's own floor three times that) and both ``quant_adamw``
+   passes (the reference's contract) at the training path's shapes, then trains
    full-width gemma-2b through ``repro_torch.launch.train.make_trainer`` +
    ``Trainer.run``: batch 4 × 512 tokens, 5 steps, ship-quantized int8
    weights, int8 gradients with error feedback, int8 AdamW moments, with the
    ``qmm``, ``qmm_t``, ``qadamw_absmax`` and ``qadamw_update`` counters set
    to 0 just before and read just after; checks finite losses, no skipped
-   step and a last loss below the first; profiles 2 more steps; runs the
+   step, a last loss below the first and every ``qmm_t`` launch on the
+   tensor cores; profiles 2 more steps (a kernel group that launched but
+   reads no device time fails: a renamed kernel); runs the
    bf16 yardstick (no channel, f32 moments, 3 steps), which must launch none
    of the four; trains the reduced model at f32 on the card and on the CPU's
    plain path from one state and checks losses, masters and codes;
@@ -99,7 +103,8 @@ NVIDIA card.
    codes of its plain version on the timed draws and, on three seeds'
    draws, of the pair encoded from the f64 product (``QOUT_SEEDS``);
    ``[kernel] qmm_t`` at the tied unembed's
-   shapes (M 4 and 1 against the (256000, 2048) table). ``[act-quant]``:
+   shapes (M 4 and 1 against the (256000, 2048) table, on the streaming
+   core). ``[act-quant]``:
    layer 0 of full-width int8 gemma-2b on one 4 × 512 batch of the training
    stream, ``ds_project`` through its seven projections with the
    ``qmm_qout`` and ``qmm`` counters set to 0 just before and read just
@@ -108,7 +113,8 @@ NVIDIA card.
    of a full-width ``ds_mlp`` block whose loss must fall. ``[serve-embed]``:
    the slice-1 trace on full-width gemma-2b with an 8-bit embedding table
    (``include_embedding=True``), the ``qmm_t``, ``qmm`` and
-   ``paged_decode_attn`` counters set to 0 just before and read just after.
+   ``paged_decode_attn`` counters set to 0 just before and read just after,
+   every ``qmm_t`` readout on the streaming core.
    ``[check]``: the reduced model with quantized tables at 8 and 4 bits and
    a reduced ``ds_mlp`` step, card against the CPU's plain path;
 9. slice 7 — ``[kernel] ssd_chunk_scan`` (B12): the SSD chunk scan against
@@ -933,11 +939,49 @@ def agree_linear(dev):
             "losses_cpu": cpu.losses.tolist(), "max_rel_loss_diff": float(rel.max())}
 
 
+def _qmm_t_checked(g, qt, packed, what):
+    """``qmm_t`` on the card against its plain version (rel ``QMM_TOL`` of
+    the largest output), one launch on the core ``qmm_t.plan`` gives its
+    shape; returns (core, max abs err, largest |plain|)."""
+    import torch
+    from repro_torch.kernels import qmm_t as QT
+
+    m, n = g.shape
+    core = QT.plan(m, qt.codes.shape[0], n).core
+    before = {"stream": QT.stream_launches, "tc": QT.tc_launches}
+    got = QT.qmm_t(g, qt.codes, qt.scale, packed=packed)
+    ran = {"stream": QT.stream_launches - before["stream"], "tc": QT.tc_launches - before["tc"]}
+    if ran != {c: int(c == core) for c in ran}:
+        raise AssertionError(f"{what}: planned core {core}, ran {ran}")
+    want = QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ref_max = float(want.abs().max())
+    if not err <= QMM_TOL * ref_max:
+        raise AssertionError(f"{what} ({core}): max err {err} > {QMM_TOL} x {ref_max}")
+    return core, err, ref_max
+
+
+def _qmm_t_core_gate(what: str, core: str) -> dict:
+    """Fail unless every ``qmm_t`` launch since its counters were reset ran
+    on ``core``, the core that ``qmm_t.plan`` gives each launched shape;
+    returns the per-core counts."""
+    from repro_torch.kernels import qmm_t as QT
+
+    got = {"stream": QT.stream_launches, "tc": QT.tc_launches}
+    planned = {QT.plan(m, k, n).core for (packed, m, k, n) in QT.shape_launches}
+    if got != {c: QT.launches * (c == core) for c in got} or planned - {core}:
+        raise AssertionError(f"{what}: qmm_t launches by core {got} (plan gives "
+                             f"{sorted(planned)}), expected all on {core}")
+    return got
+
+
 def check_qmm_t(dev, flush):
     """``qmm_t`` against its plain version (rel 1e-5 of the largest output)
     at the training path's shapes, int8 and packed int4, f32 g (the
-    cotangent the backward hands it); ``torch.matmul`` of g (bf16) with the
-    bf16-decoded weight transposed is the library yardstick."""
+    cotangent the backward hands it), on the tensor-core core;
+    ``torch.matmul`` of g (bf16) with the bf16-decoded weight transposed is
+    the library yardstick."""
     import torch
     from repro_torch.kernels import qmm_t as QT
     from repro_torch.quant import QScheme, encode
@@ -951,14 +995,9 @@ def check_qmm_t(dev, flush):
             qt = encode(w, QScheme.int_symmetric(bits, scaling="channel",
                                                  rounding="nearest", packed=packed))
             g = torch.randn(m, n, generator=gen, device=dev)
-            got = QT.qmm_t(g, qt.codes, qt.scale, packed=packed)
-            want = QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ref_max = float(want.abs().max())
-            if not err <= QMM_TOL * ref_max:
-                raise AssertionError(f"qmm_t int{bits} {m}x{k}x{n}: max err {err} "
-                                     f"> {QMM_TOL} x {ref_max}")
+            core, err, ref_max = _qmm_t_checked(g, qt, packed, f"qmm_t int{bits} {m}x{k}x{n}")
+            if core != "tc":
+                raise AssertionError(f"qmm_t int{bits} {m}x{k}x{n}: planned on {core}")
             w_bf16 = qt.decode().to(torch.bfloat16)
             g_bf16 = g.to(torch.bfloat16)
             ms = _timed(lambda: QT.qmm_t(g, qt.codes, qt.scale, packed=packed), flush)
@@ -966,19 +1005,23 @@ def check_qmm_t(dev, flush):
                               flush)
             lib_ms = _timed(lambda: torch.matmul(g_bf16, w_bf16.T), flush)
             nbytes = g.numel() * 4 + qt.codes.numel() + n * 4 + m * k * 4
-            # the per-column scale lies along the contraction axis, so it
-            # cannot wait for the epilogue: g ⊙ scale must keep f32 precision
-            # (bf16's 8-bit mantissa rounds it by ~1e-3, against the 1e-5
-            # contract), so the products run at the f32 rate
-            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n, F32_FLOPS)
+            # the least time for this work whatever computes it: one bf16
+            # tensor-core product of the same shape (the bf16 matmul beside
+            # it computes a rounded version of it). The kernel runs three
+            # such products (g · scale in three bf16 pieces): its own floor
+            # is three times the operations at the bf16 rate
+            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
+            floor_ms = 3 * 2 * m * k * n / BF16_FLOPS * 1e3
             rows.append({"name": f"qmm_t int{bits} M{m} K{k} N{n}", "key": (packed, m, k, n),
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-            print(f"[kernel] qmm_t int{bits} (M,K,N)=({m},{k},{n}): max_err={err:.3e} "
-                  f"(tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
+                         "core": core, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "three_pass_floor_ms": floor_ms})
+            print(f"[kernel] qmm_t int{bits} (M,K,N)=({m},{k},{n}): core={core} "
+                  f"max_err={err:.3e} (tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (bf16 matmul) "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}, f32 FMAs at 67 TFLOP/s)", flush=True)
-            del w, qt, g, got, want, w_bf16, g_bf16
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) three_pass_floor_ms={floor_ms:.4f}",
+                  flush=True)
+            del w, qt, g, w_bf16, g_bf16
     return rows
 
 
@@ -1054,8 +1097,8 @@ def _train_counters(reset: bool = False):
 
     if reset:
         Q.reset_counters()
-        QT.launches = QA.absmax_launches = QA.update_launches = 0
-        QT.shape_launches.clear()
+        QT.reset_counters()
+        QA.absmax_launches = QA.update_launches = 0
         QA.shape_launches.clear()
     return {"qmm": Q.launches, "qmm_t": QT.launches,
             "qadamw_absmax": QA.absmax_launches, "qadamw_update": QA.update_launches}
@@ -1096,6 +1139,7 @@ def train_full(dev, checked):
         torch.cuda.synchronize()
         launches = _train_counters()
         qmm_cores = _core_gate(f"[train] {name}", Q, checked)
+        qmm_t_cores = _qmm_t_core_gate(f"[train] {name}", "tc")
         shapes = {name: [[*key, c] for key, c in counter.items()] for name, counter in
                   (("qmm", Q.shape_launches), ("qmm_t", QT.shape_launches),
                    ("quant_adamw", QA.shape_launches))}
@@ -1108,13 +1152,15 @@ def train_full(dev, checked):
                "grad_norm": [h["grad_norm"] for h in hist],
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "launches": launches, "qmm_launches_by_core": qmm_cores,
+               "qmm_t_launches_by_core": qmm_t_cores,
                "launches_per_step": {k: v / n for k, v in launches.items()},
                "shape_launches": shapes}
         print(f"[train] gemma-2b full width {name} (B={b}, S={s}, {n} steps): losses "
               f"{[round(x, 4) for x in losses]}; {ms:.1f} ms/step (median of steps 2-{n}), "
               f"{run['tokens_per_s']:.1f} tokens/s; max_memory_allocated "
               f"{run['max_memory_allocated'] / 2 ** 30:.2f} GiB; launches per step "
-              f"{run['launches_per_step']}, qmm by core {qmm_cores}; skipped "
+              f"{run['launches_per_step']}, qmm by core {qmm_cores}, qmm_t by core "
+              f"{qmm_t_cores}; skipped "
               f"{run['skipped']}", flush=True)
         if not (np.isfinite(losses).all() and all(x == 0 for x in run["skipped"])):
             raise AssertionError(f"[train] {name}: losses {losses}, skipped {run['skipped']}")
@@ -1143,14 +1189,22 @@ def profile_train(tr, state, steps: int = 2):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import qmm_t as QT
+
     n0 = state.step
     torch.cuda.synchronize()
+    before = _train_counters()
+    shapes_before = dict(QT.shape_launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = tr.run(n0 + steps, state=state)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {"qmm": ("qmm_simt", "qmm_tc", "splitk_reduce"), "qmm_t": ("qmm_t_kernel",),
+    # kernel names: qmm_t's all begin "qmm_t_" (qmm_t_split, qmm_t_tc,
+    # qmm_t_stream), which no name of qmm's contains; a split contraction
+    # would add qmm_core.cuh's splitk_reduce, which qmm launches too, so
+    # the window must hold none (checked below)
+    groups = {"qmm": ("qmm_simt", "qmm_tc", "splitk_reduce"), "qmm_t": ("qmm_t_",),
               "quant_adamw": ("absmax_kernel", "update_kernel"),
               "threefry (int64 elementwise)": ("long",)}
     by_group = {k: 0.0 for k in groups}
@@ -1167,7 +1221,16 @@ def profile_train(tr, state, steps: int = 2):
             if any(k in ev.key for k in keys):
                 by_group[gname] += us / 1e3
                 break
-    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+    after = _train_counters()
+    split = sorted(key for key, n in QT.shape_launches.items()
+                   if n > shapes_before.get(key, 0) and QT.plan(*key[1:]).splits > 1)
+    if split:
+        raise AssertionError(f"[train-profile] qmm_t split the contraction at (packed, M, K, "
+                             f"N) {split}: its splitk_reduce would count in qmm's group")
+    launched = {"qmm": after["qmm"] - before["qmm"], "qmm_t": after["qmm_t"] - before["qmm_t"],
+                "quant_adamw": sum(after[k] - before[k]
+                                   for k in ("qadamw_absmax", "qadamw_update"))}
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps, "launches": launched,
            "device_events_per_step": n_events / steps,
            "device_ms_per_step": device_ms / steps if device_ms else None,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
@@ -1180,6 +1243,13 @@ def profile_train(tr, state, steps: int = 2):
               f"busy {out['device_ms_per_step']:.1f} ms/step, busy share "
               f"{out['device_busy_share']:.3f}; share of device time " + ", ".join(
                   f"{k} {v:.3f}" for k, v in out["share_of_device_time"].items()), flush=True)
+        # a group whose kernels launched in the window but read no device
+        # time has lost its kernel names (a renamed kernel): its share
+        # would silently read 0
+        unread = [k for k, n in launched.items() if n and not by_group[k]]
+        if unread:
+            raise AssertionError(f"[train-profile] groups {unread} launched {launched} but "
+                                 f"read 0 device ms: their kernel names are not in {groups}")
     else:
         print("[train-profile] torch.profiler recorded no device time: not measured", flush=True)
     return out
@@ -2373,30 +2443,25 @@ def check_qmm_t_unembed(dev, flush):
         w_bf16 = qt.decode(torch.bfloat16)
         for m in (SERVE["max_slots"], 1):
             g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
-            got = QT.qmm_t(g, qt.codes, qt.scale, packed=packed)
-            want = QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ref_max = float(want.abs().max())
-            if not err <= QMM_TOL * ref_max:
-                raise AssertionError(f"qmm_t unembed int{bits} M{m}: max err {err} > "
-                                     f"{QMM_TOL} x {ref_max}")
+            core, err, ref_max = _qmm_t_checked(g, qt, packed, f"qmm_t unembed int{bits} M{m}")
+            if core != "stream":
+                raise AssertionError(f"qmm_t unembed int{bits} M{m}: planned on {core}")
             ms = _timed(lambda: QT.qmm_t(g, qt.codes, qt.scale, packed=packed), flush)
             plain_ms = _timed(lambda: QT.qmm_t_plain(g, qt.codes, qt.scale, packed=packed),
                               flush, iters=5)
             lib_ms = _timed(lambda: torch.matmul(g, w_bf16.T), flush)
             nbytes = g.numel() * 2 + qt.codes.numel() + n * 4 + m * k * 4
-            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n, F32_FLOPS)
+            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
             role = "decode readout" if m > 1 else "prefill readout"
             rows.append({"name": f"qmm_t int{bits} M{m} K{k} N{n} (tied unembed, {role})",
-                         "key": (packed, m, k, n), "max_abs_err": err, "ms": ms,
+                         "key": (packed, m, k, n), "core": core, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by})
             print(f"[kernel] qmm_t int{bits} (M,K,N)=({m},{k},{n}) tied unembed, {role}: "
-                  f"max_err={err:.3e} (tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
+                  f"core={core} max_err={err:.3e} (tol {QMM_TOL:g} x {ref_max:.3g}) kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (bf16 matmul) "
                   f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} bytes)", flush=True)
-            del g, got, want
+            del g
         del qt, w_bf16
     torch.cuda.empty_cache()
     return rows
@@ -2592,8 +2657,8 @@ def serve_embed(dev, slice1, checked):
     trace = make_trace(SERVE["n_requests"], cfg.vocab_size, max_new=SERVE["max_new"],
                        max_prompt=SERVE["max_prompt"], seed=0)
     Q.reset_counters()
-    QT.launches = PA.launches = 0
-    QT.shape_launches.clear()
+    QT.reset_counters()
+    PA.launches = 0
     t0 = time.perf_counter()
     results = engine.run(trace)
     torch.cuda.synchronize()
@@ -2602,6 +2667,7 @@ def serve_embed(dev, slice1, checked):
     qt_shapes = dict(QT.shape_launches)
     qmm_shapes = dict(Q.shape_launches)
     qmm_cores = _core_gate("[serve-embed]", Q, checked)
+    qmm_t_cores = _qmm_t_core_gate("[serve-embed]", "stream")
     n_gen = _check_served(engine, results, engine.cfg)
     st, L = engine.stats, cfg.n_layers
     want = {"qmm_t": st["admitted"] + st["decode_steps"],
@@ -2616,7 +2682,7 @@ def serve_embed(dev, slice1, checked):
            "decode_tokens_per_s": engine.throughput(),
            "mean_decode_step_ms": 1e3 * statistics.mean(engine.decode_times),
            "weight_bytes": engine.weight_nbytes(), "wall_s": wall, "launches": launches,
-           "qmm_launches_by_core": qmm_cores,
+           "qmm_launches_by_core": qmm_cores, "qmm_t_launches_by_core": qmm_t_cores,
            "qmm_shape_launches": [[*k, v] for k, v in qmm_shapes.items()],
            "qmm_t_shape_launches": [[*k, v] for k, v in qt_shapes.items()],
            "slice1_8_8": {"decode_tokens_per_s": base["decode_tokens_per_s"],
@@ -2629,7 +2695,8 @@ def serve_embed(dev, slice1, checked):
           f"({out['mean_decode_step_ms']:.2f} ms/step) against slice 1's 8/8 "
           f"{base['decode_tokens_per_s']:.1f} tok/s ({base['mean_decode_step_ms']:.2f} "
           f"ms/step) in this run; weights {out['weight_bytes']:,} bytes (slice 1: "
-          f"{base['weight_bytes']:,}); launches {launches}; qmm_t shapes {qt_shapes}",
+          f"{base['weight_bytes']:,}); launches {launches}; qmm_t shapes {qt_shapes}, by "
+          f"core {qmm_t_cores}",
           flush=True)
     out["profile"] = profile_decode(engine)
     del engine

@@ -534,20 +534,10 @@ template <int MAGS, int XW, int CW>
 cudaError_t launch_tc_as(const __nv_bfloat16* x, const uint32_t* planes, const float* scale,
                          float* dst, int M, int K, int N, int P, int k_chunk, dim3 grid,
                          int xw, int cw, cudaStream_t stream) {
-  // > 48 KB of dynamic shared memory needs the opt-in, which holds for the
-  // current device only: kept per device (devices past 64 opt in each time)
   static unsigned long long opted_in = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      opt_in_smem(tc::qmm_bitplane_tc<MAGS, XW, CW>, tc::smem_bytes(tc::MAX_PLANES), opted_in);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
-  if (!(opted_in & bit)) {
-    err = cudaFuncSetAttribute(tc::qmm_bitplane_tc<MAGS, XW, CW>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tc::smem_bytes(tc::MAX_PLANES));
-    if (err != cudaSuccess) return err;
-    opted_in |= bit;
-  }
   tc::qmm_bitplane_tc<MAGS, XW, CW><<<grid, tc::kThreads, tc::smem_bytes(P), stream>>>(
       x, planes, scale, dst, M, K, N, P, k_chunk, xw, cw);
   return cudaGetLastError();

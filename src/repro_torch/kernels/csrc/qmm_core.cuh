@@ -432,19 +432,9 @@ cudaError_t launch_tc_as(const __nv_bfloat16* x, const uint8_t* codes, const flo
                          float* dst, int M, int K, int N, int k_chunk, dim3 grid, int xw,
                          int cw, cudaStream_t stream) {
   constexpr int smem = tc::Smem<PACKED>::BYTES;
-  // > 48 KB of dynamic shared memory needs the opt-in, which holds for the
-  // current device only: kept per device (devices past 64 opt in each time)
   static unsigned long long opted_in = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in_smem(tc::qmm_tc<PACKED, XW, CW>, smem, opted_in);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
-  if (!(opted_in & bit)) {
-    err = cudaFuncSetAttribute(tc::qmm_tc<PACKED, XW, CW>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    opted_in |= bit;
-  }
   tc::qmm_tc<PACKED, XW, CW><<<grid, tc::kThreads, smem, stream>>>(
       x, codes, scale, dst, M, K, N, k_chunk, xw, cw);
   return cudaGetLastError();

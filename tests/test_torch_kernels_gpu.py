@@ -425,8 +425,28 @@ def test_train_linear_slice5_card_matches_cpu_plain_path(cuda, case):
                                    rtol=0, atol=0.01)
 
 
+# ragged and small shapes on both sides of qmm_t.plan's threshold (M 8
+# streams, M 9 runs on the tensor cores) at q/o's (2048, 2048) and a ragged
+# (1001, 1000); a tensor-core case with a ragged tail of N in the last of
+# its contraction slices (M 256, N 1000: six slices of 192)
+QMM_T_EDGE = tqmm_t.TC_THRESHOLD
 QMM_T_SHAPES = [(1, 40, 24), (5, 64, 48), (13, 96, 130), (130, 257, 256),
-                (7, 33, 130), (256, 2048, 256)]
+                (7, 33, 130), (256, 2048, 256),
+                (QMM_T_EDGE, 2048, 2048), (QMM_T_EDGE + 1, 2048, 2048),
+                (QMM_T_EDGE, 1001, 1000), (QMM_T_EDGE + 1, 1001, 1000), (256, 512, 1000)]
+
+
+def _qmm_t_run(g, codes, scale, packed):
+    """``qmm_t`` on the card; checks that one launch ran, on the core
+    ``qmm_t.plan`` gives its shape."""
+    m, n = g.shape
+    core = tqmm_t.plan(m, codes.shape[0], n).core
+    before = (tqmm_t.launches, tqmm_t.stream_launches, tqmm_t.tc_launches)
+    got = tqmm_t.qmm_t(g, codes, scale, packed=packed)
+    tc = int(core == "tc")
+    assert (tqmm_t.launches, tqmm_t.stream_launches, tqmm_t.tc_launches) == (
+        before[0] + 1, before[1] + 1 - tc, before[2] + tc)
+    return got
 
 
 @pytest.mark.gpu
@@ -437,13 +457,52 @@ def test_qmm_t_kernel_matches_plain(cuda, m, k, n, bits, packed, gdtype):
     qt = _weights(k, n, bits, packed).to(cuda)
     g = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, n)).astype(
         np.float32)).to(cuda, gdtype)
-    before = tqmm_t.launches
-    got = tqmm_t.qmm_t(g, qt.codes, qt.scale, packed=packed)
-    assert tqmm_t.launches == before + 1
+    got = _qmm_t_run(g, qt.codes, qt.scale, packed)
     want = tqmm_t.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
     torch.cuda.synchronize()
     assert got.shape == (m, k) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, QMM_T_EDGE + 1, 130])
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+def test_qmm_t_kernel_wide_column_scales(cuda, m, bits, packed):
+    # f32 g against per-column scales over 2^-20..2^20: g · scale spans 40
+    # binades, and every one of its 24 bits must reach the product
+    k, n = 300, 520
+    rng = np.random.default_rng(7)
+    codes = _weights(k, n, bits, packed).codes.to(cuda)
+    scale = torch.from_numpy(2.0 ** rng.uniform(-20, 20, (1, n))).float().to(cuda)
+    g = torch.from_numpy(rng.normal(0, 1, (m, n)).astype(np.float32)).to(cuda)
+    got = _qmm_t_run(g, codes, scale, packed)
+    want = tqmm_t.qmm_t_plain(g, codes, scale, packed=packed)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, QMM_T_EDGE + 1, 130])
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+def test_qmm_t_kernel_non_finite_rows(cuda, m, bits, packed):
+    # one inf and one nan in g: the trainer's skip flag reads finiteness, so
+    # dx must be non-finite exactly where the plain version's is (the split
+    # of inf gives nan pieces where the plain version has ±inf)
+    k, n = 96, 130
+    qt = _weights(k, n, bits, packed).to(cuda)
+    g = torch.from_numpy(np.random.default_rng(m).normal(0, 1, (m, n)).astype(
+        np.float32)).to(cuda)
+    g[1, 5] = float("inf")
+    g[m - 1, n - 1] = float("nan")
+    got = _qmm_t_run(g, qt.codes, qt.scale, packed)
+    want = tqmm_t.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(want)
+    assert bad[1].any() and bad[m - 1].any()
+    assert torch.equal(~torch.isfinite(got), bad)
+    fine = ~bad
+    scale_ = want[fine].abs().max().item()
+    torch.testing.assert_close(got[fine], want[fine], rtol=0, atol=1e-5 * scale_)
 
 
 def _adamw_leaf(r, c, seed, device):
@@ -723,9 +782,7 @@ def test_qmm_t_kernel_at_unembed_decode_shape(cuda, bits, packed):
     m, k, n = 4, 65536, 512
     qt = _weights(k, n, bits, packed, seed=1).to(cuda)
     g = torch.randn(m, n, device=cuda, dtype=torch.bfloat16)
-    before = tqmm_t.launches
-    got = tqmm_t.qmm_t(g, qt.codes, qt.scale, packed=packed)
-    assert tqmm_t.launches == before + 1
+    got = _qmm_t_run(g, qt.codes, qt.scale, packed)
     want = tqmm_t.qmm_t_plain(g, qt.codes, qt.scale, packed=packed)
     torch.cuda.synchronize()
     assert got.shape == (m, k)

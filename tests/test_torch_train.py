@@ -141,6 +141,30 @@ def test_qmm_t_plain_matches_pallas(m, k, n, bits):
     assert tqmm_t.launches == 0             # CPU tensors: the plain version
 
 
+@pytest.mark.parametrize("m,k,n", QMM_T_CASES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmm_t_three_piece_product_matches_pallas(m, k, n, bits):
+    # the arithmetic of qmm_t's tensor-core core: v = g · scale rounded to
+    # f32, split into three bf16 pieces, each piece times the integer codes
+    # (exact products, summed here in f64), rounded once to f32
+    from repro_torch.quant.qtensor import unpack_int4
+
+    packed = bits == 4
+    rng = np.random.default_rng(m + k + n)
+    w = rng.normal(0, 0.05, (k, n)).astype(np.float32)
+    g = rng.normal(0, 1, (m, n)).astype(np.float32)
+    qt = jqt.encode_jnp(jnp.asarray(w), JScheme.int_symmetric(
+        bits, scaling="channel", rounding="nearest", packed=packed))
+    want = jops.quant_dense_apply(jnp.asarray(g), qt.codes, qt.scale.reshape(1, n),
+                                  packed=packed, transpose=True)
+    codes = _t(qt.codes)
+    c = (unpack_int4(codes) if packed else codes).to(torch.float64)
+    v = _t(g) * _t(qt.scale).reshape(1, n)
+    got = sum(p.to(torch.float64) @ c.t() for p in tqmm_t.split_bf16x3(v)).float()
+    assert got.shape == (m, k)
+    assert _rel(got.numpy(), want) <= 1e-5
+
+
 def _adamw_leaf(r, c, seed):
     rng = np.random.default_rng(seed)
     master = rng.normal(0, 1, (r, c)).astype(np.float32)
