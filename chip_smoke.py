@@ -8,7 +8,9 @@ NVIDIA card.
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes of its path — ``qmm`` at every gemma-2b projection at decode M,
    each prompt bucket of the served trace and the training batch, paged
-   attention at the serving shapes, ``ds_quant`` (bit-exact) and ``qmv``
+   attention at the serving shape (plus check-only rows at gemma-7b's and
+   granite-3-8b's head layouts and at long rows; every row of each call
+   bit-equal to the same row computed alone), ``ds_quant`` (bit-exact) and ``qmv``
    at every shape a path launches them at (gisette's batch 16 × 5000,
    gisette's whole matrix row-scaled at s 15, yearprediction's batch
    16 × 90 at s 7 and 31),
@@ -161,6 +163,10 @@ QMM_SHAPES = [(4, 2048, 2048), (4, 2048, 256), (4, 2048, 16384),
 QMM_TOL = 1e-5                # rel to max|plain|: f32 dequant, f32 accumulation order
 ATTN_TOL = 1e-4               # abs: both f32 online softmax, summation order only
 ATTN_LENS = [160, 97, 33, 1]
+# B10's check-only rows: the (H, Hkv, D) of configs to come (gemma-7b's MHA,
+# granite-3-8b's GQA) at ATTN_LENS, and long rows at gemma-2b's layout
+ATTN_CHECK_LAYOUTS = [(16, 16, 256), (32, 8, 128)]
+ATTN_LONG_LENS = [4096, 1500, 257, 0]
 # ds_quant cases: (R, C, scale axis, s); each is bit-exact at DS_S and its
 # own s, and timed at its own s. On the paths: slice 2's gisette batch
 # (6-bit samples, s 63), [quantize-rows]' ds_quantize(scale=None) of
@@ -479,10 +485,90 @@ def check_qmm_mamba(dev, flush):
     return rows
 
 
-def check_paged_attn(dev, flush):
+def _attn_pool(dev, gen, bits, n_pages, page, hkv, d):
+    """One layer of a paged KV pool at ``bits`` holding random rows."""
+    import torch
+    from repro_torch.serve import pages as pg
+
+    pool = pg.init_pool(1, n_pages, page, hkv, d, kv_bits=bits, device=dev)
+    k = torch.randn(n_pages, page, hkv, d, generator=gen, device=dev)
+    v = torch.randn(n_pages, page, hkv, d, generator=gen, device=dev)
+    kc, ks = pg.quant_rows(k, bits)
+    vc, vs = pg.quant_rows(v, bits)
+    kp, vp, ksc, vsc = pool.layer(0)
+    kp.copy_(kc)
+    vp.copy_(vc)
+    if bits:
+        ksc.copy_(ks)
+        vsc.copy_(vs)
+    return kp, vp, ksc, vsc
+
+
+def _attn_row(flush, args, bits, path):
+    """Check one ``paged_decode_attn`` call against its plain version
+    (ATTN_TOL) and every row of it against the same row computed alone
+    (bit-equal), then time it beside the plain version and SDPA."""
     import torch
     from repro_torch.kernels import paged_attn as PA
-    from repro_torch.serve import pages as pg
+    from repro_torch.kernels.ref import dequant_pages_ref, gather_pages_ref
+
+    q, kp, vp, ksc, vsc, bt, lens = args
+    b, h, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    lens_l = lens.tolist()
+    name = {0: "bf16", 8: "int8", 4: "int4"}[bits]
+    label = f"paged_decode_attn {name} B{b} H{h} Hkv{hkv} D{d} page{page}"
+    if not path:
+        label += f" lens{lens_l} (check only)"
+    kw = dict(softmax_scale=d ** -0.5, kv_bits=bits)
+    got = PA.paged_decode_attn(*args, **kw)
+    want = PA.paged_decode_attn_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= ATTN_TOL:
+        raise AssertionError(f"{label}: max err {err} > {ATTN_TOL}")
+    # a row's bits depend on its own length alone (decode and the verify
+    # window must agree)
+    for i in range(b):
+        alone = PA.paged_decode_attn(q[i:i + 1], kp, vp, ksc, vsc, bt[i:i + 1], lens[i:i + 1],
+                                     **kw)
+        if not torch.equal(alone[0], got[i]):
+            raise AssertionError(f"{label}: row {i} (len {lens_l[i]}) differs from "
+                                 "the same row computed alone")
+    # library yardstick: SDPA over the gathered, dequantized rows, each kv
+    # head repeated for its H / Hkv query heads
+    kk = dequant_pages_ref(gather_pages_ref(kp, bt), gather_pages_ref(ksc, bt) if bits else None)
+    vv = dequant_pages_ref(gather_pages_ref(vp, bt), gather_pages_ref(vsc, bt) if bits else None)
+    t_all = kk.shape[1]
+
+    def heads(x):
+        x = x.to(torch.bfloat16).permute(0, 2, 1, 3)[:, :, None]
+        return x.expand(b, hkv, h // hkv, t_all, d).reshape(b, h, t_all, d).contiguous()
+
+    kk, vv = heads(kk), heads(vv)
+    mask = (torch.arange(t_all, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = _timed(lambda: PA.paged_decode_attn(*args, **kw), flush)
+    plain_ms = _timed(lambda: PA.paged_decode_attn_plain(*args, **kw), flush)
+    lib_ms = _timed(lambda: sdpa(q4, kk, vv, attn_mask=mask), flush)
+    rows_kv = int(lens.sum())
+    row_bytes = {0: d * 2, 8: d + 4, 4: d // 2 + 4}[bits]
+    nbytes = q.numel() * q.element_size() + 2 * rows_kv * hkv * row_bytes + bt.numel() * 4 \
+        + b * 4 + b * h * d * 4
+    bound_ms, bound_by = _bound(nbytes, 4 * rows_kv * h * d)
+    print(f"[kernel] {label} lens={lens_l}: max_err={err:.3e} (tol {ATTN_TOL:g}), rows "
+          f"bit-equal alone; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+    return {"name": label, "kv_bits": bits, "path": path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "rows_bit_equal_alone": True}
+
+
+def check_paged_attn(dev, flush):
+    """B10 at the serving shape (the path's rows), then check-only rows at
+    gemma-7b's and granite-3-8b's head layouts and at long rows."""
+    import torch
 
     b, h, hkv, d, page = 4, 8, 1, 256, 16
     maxp = -(-max(ATTN_LENS) // page) + 1
@@ -494,50 +580,20 @@ def check_paged_attn(dev, flush):
     lens = torch.tensor(ATTN_LENS, dtype=torch.int32, device=dev)
     rows = []
     for bits in (0, 8, 4):
-        pool = pg.init_pool(1, n_pages, page, hkv, d, kv_bits=bits, device=dev)
-        k = torch.randn(n_pages, page, hkv, d, generator=gen, device=dev)
-        v = torch.randn(n_pages, page, hkv, d, generator=gen, device=dev)
-        kc, ks = pg.quant_rows(k, bits)
-        vc, vs = pg.quant_rows(v, bits)
-        kp, vp, ksc, vsc = pool.layer(0)
-        kp.copy_(kc)
-        vp.copy_(vc)
-        if bits:
-            ksc.copy_(ks)
-            vsc.copy_(vs)
-        args = (q, kp, vp, ksc, vsc, bt, lens)
-        kw = dict(softmax_scale=d ** -0.5, kv_bits=bits)
-        got = PA.paged_decode_attn(*args, **kw)
-        want = PA.paged_decode_attn_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not err <= ATTN_TOL:
-            raise AssertionError(f"paged_decode_attn kv{bits}: max err {err} > {ATTN_TOL}")
-        # library yardstick: SDPA over the gathered, dequantized rows
-        from repro_torch.kernels.ref import dequant_pages_ref, gather_pages_ref
-        kk = dequant_pages_ref(gather_pages_ref(kp, bt), gather_pages_ref(ksc, bt) if bits else None)
-        vv = dequant_pages_ref(gather_pages_ref(vp, bt), gather_pages_ref(vsc, bt) if bits else None)
-        kk = kk.to(torch.bfloat16).permute(0, 2, 1, 3).expand(b, h, -1, d).contiguous()
-        vv = vv.to(torch.bfloat16).permute(0, 2, 1, 3).expand(b, h, -1, d).contiguous()
-        mask = (torch.arange(kk.shape[2], device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        ms = _timed(lambda: PA.paged_decode_attn(*args, **kw), flush)
-        plain_ms = _timed(lambda: PA.paged_decode_attn_plain(*args, **kw), flush)
-        lib_ms = _timed(lambda: sdpa(q4, kk, vv, attn_mask=mask), flush)
-        rows_kv = int(lens.sum())
-        row_bytes = {0: d * 2, 8: d + 4, 4: d // 2 + 4}[bits]
-        nbytes = q.numel() * 2 + 2 * rows_kv * hkv * row_bytes + bt.numel() * 4 + b * 4 \
-            + b * h * d * 4
-        bound_ms, bound_by = _bound(nbytes, 4 * rows_kv * h * d)
-        name = {0: "bf16", 8: "int8", 4: "int4"}[bits]
-        rows.append({"name": f"paged_decode_attn {name} B{b} H{h} Hkv{hkv} D{d} page{page}",
-                     "kv_bits": bits, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[kernel] paged_decode_attn {name} B={b} H={h} Hkv={hkv} D={d} page={page} "
-              f"lens={ATTN_LENS}: max_err={err:.3e} (tol {ATTN_TOL:g}) kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by})", flush=True)
+        pool = _attn_pool(dev, gen, bits, n_pages, page, hkv, d)
+        rows.append(_attn_row(flush, (q, *pool, bt, lens), bits, True))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for (h, hkv, d), case_lens in [*((lay, ATTN_LENS) for lay in ATTN_CHECK_LAYOUTS),
+                                   ((8, 1, 256), ATTN_LONG_LENS)]:
+        maxp = -(-max(case_lens) // page) + 1
+        n_pages = b * maxp + 1
+        q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * maxp] + 1
+        bt = perm.reshape(b, maxp).to(torch.int32)
+        lens = torch.tensor(case_lens, dtype=torch.int32, device=dev)
+        for bits in (0, 8, 4):
+            pool = _attn_pool(dev, gen, bits, n_pages, page, hkv, d)
+            rows.append(_attn_row(flush, (q, *pool, bt, lens), bits, False))
     return rows
 
 
@@ -648,12 +704,15 @@ def profile_window(advance, steps: int, what: str):
            "device_events_per_step": n_kernels / steps,
            "device_ms_per_step": device_ms / steps if device_ms else None,
            "device_idle_share": 1 - device_ms / wall_ms if device_ms else None,
-           "top_kernels_ms_per_step": {k: v / steps for k, v in top}}
+           "top_kernels_ms_per_step": {k: v / steps for k, v in top},
+           "paged_attn_ms_per_step": sum(v for k, v in by_kernel.items()
+                                         if "paged_attn" in k) / steps}
     if device_ms:
         print(f"[profile] {steps} {what}: wall {out['wall_ms_per_step']:.2f} "
               f"ms/step, {out['device_events_per_step']:.0f} device events/step, device busy "
               f"{out['device_ms_per_step']:.3f} ms/step, idle share "
-              f"{out['device_idle_share']:.3f}; top: " + "; ".join(
+              f"{out['device_idle_share']:.3f}, paged attention "
+              f"{out['paged_attn_ms_per_step']:.4f} ms/step; top: " + "; ".join(
                   f"{k[:40]} {v:.3f}" for k, v in out["top_kernels_ms_per_step"].items()),
               flush=True)
     else:
@@ -3196,10 +3255,10 @@ def main():
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
     for r in attn_rows:
-        bits = r.pop("kv_bits")
-        # kv 8: [serve] at 8/8 and [serve-optimal]
-        r["launches"] = runs[bits][0]["paged_decode_attn"] if bits in runs else 0
-        if bits == 8:
+        bits, path = r.pop("kv_bits"), r.pop("path")
+        # kv 8: [serve] at 8/8 and [serve-optimal]; the check-only rows 0
+        r["launches"] = runs[bits][0]["paged_decode_attn"] if path and bits in runs else 0
+        if path and bits == 8:
             r["launches"] += serve_opt["launches"]["paged_decode_attn"]
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/paged_attn.cu",

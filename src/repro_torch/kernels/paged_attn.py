@@ -2,13 +2,17 @@
 quantized KV pool (port of ``repro.kernels.paged_attn``; the CUDA source is
 ``csrc/paged_attn.cu``).
 
-On a CUDA tensor the wrapper launches the hand-written kernel or raises;
-on a CPU tensor it computes :func:`paged_decode_attn_plain`, the same f32
-online-softmax math written out in PyTorch.
+On a CUDA tensor the wrapper launches the hand-written kernel once or
+raises: a split-page flash decode whose blocks each take a fixed run of a
+sequence's pages and whose last block per (sequence, kv head) merges the
+splits in fixed order (:func:`plan` sizes the grid and the workspace from
+shapes alone). On a CPU tensor it computes :func:`paged_decode_attn_plain`,
+the same f32 online-softmax math written out in PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -65,20 +69,81 @@ def paged_decode_attn_plain(q, k_pages, v_pages, k_scale, v_scale,
 
 
 def _lib():
-    lib = _build.load("paged_attn")
+    return typed(_build.load("paged_attn"))
+
+
+def typed(lib):
+    """Declare the C entry points of a ``csrc/paged_attn.cu`` library (a
+    build of it with another split, too) and read its pages per split."""
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attn_launch.argtypes = [p, i, p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, i,
+        lib.paged_attn_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, i, i,
                                           ctypes.c_float, p]
         lib.paged_attn_launch.restype = i
+        lib.paged_attn_pages_per_split.argtypes = []
+        lib.paged_attn_pages_per_split.restype = i
         lib.paged_attn_error_string.argtypes = [i]
         lib.paged_attn_error_string.restype = ctypes.c_char_p
+        lib.pages_per_split = lib.paged_attn_pages_per_split()
         lib._typed = True
     return lib
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 _PAGE_DTYPE = {0: torch.bfloat16, 8: torch.int8, 4: torch.uint8}
+MAX_D = 512                 # csrc/paged_attn.cu · kMaxChunks: 4 chunks of 4 per lane
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``splits`` blocks per (sequence, kv head), each
+    over ``pages_per_split`` consecutive block-table entries (the kernel's
+    constant); ``ws`` f32 words of split partials and ``counters`` int32
+    arrival counters; K/V rows copied ``copy_w`` bytes at a time."""
+    splits: int
+    ws: int
+    counters: int
+    copy_w: int
+
+
+def plan(b: int, h: int, hkv: int, d: int, maxp: int, row_bytes: int,
+         base: int, pages_per_split: int) -> Plan:
+    """From shapes alone (never from ``seq_lens``, which stays on the
+    card): the grid's split axis covers the widest block-table row, and a
+    split's partial holds R·D weighted values plus R maxima and R
+    denominators. ``base`` is the pages' addresses or-ed together: the
+    copy width is the widest of 16, 8, 4 bytes that it and the row's
+    bytes are multiples of."""
+    if d % 8 or d > MAX_D:
+        raise ValueError(f"paged_decode_attn: the kernel takes D a multiple of 8 "
+                         f"up to {MAX_D}, got {d}")
+    splits = max(1, -(-maxp // pages_per_split))
+    r = h // hkv
+    w = 16
+    while w > 4 and (base | row_bytes) % w:
+        w //= 2
+    if (base | row_bytes) % w:
+        raise ValueError("paged_decode_attn: page rows must be 4-byte aligned")
+    return Plan(splits, b * hkv * splits * (r * d + 2 * r), b * hkv, w)
+
+
+# per (device, stream): the split partials and the arrival counters, grown
+# when a larger grid needs more; the counters are zeroed only when
+# allocated, and every launch leaves them at 0
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, stream: int, p: Plan):
+    ws, counters = _WORKSPACE.get((device, stream), (None, None))
+    if ws is None or ws.numel() < p.ws:
+        ws = torch.empty(max(p.ws, 1), dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < p.counters:
+        counters = torch.zeros(p.counters, dtype=torch.int32, device=device)
+    _WORKSPACE[(device, stream)] = (ws, counters)
+    return ws, counters
 
 
 def paged_decode_attn(q, k_pages, v_pages, k_scale, v_scale, block_table,
@@ -89,7 +154,6 @@ def paged_decode_attn(q, k_pages, v_pages, k_scale, v_scale, block_table,
     k/v_pages: (P, page, Hkv, D) bf16/int8 or (P, page, Hkv, D/2) uint8
     (packed int4); k/v_scale: (P, page, Hkv, 1) f32 (ignored for bf16);
     block_table (B, MAXP) int32; seq_lens (B,) int32."""
-    global launches
     if not q.is_cuda:
         return paged_decode_attn_plain(
             q, k_pages, v_pages, k_scale, v_scale, block_table, seq_lens,
@@ -100,7 +164,8 @@ def paged_decode_attn(q, k_pages, v_pages, k_scale, v_scale, block_table,
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_decode_attn: kv_bits={kv_bits} needs "
                         f"{_PAGE_DTYPE.get(kv_bits)} pages, got {k_pages.dtype}")
-    if dk != (d // 2 if kv_bits == 4 else d) or h % hkv:
+    if dk != (d // 2 if kv_bits == 4 else d) or h % hkv \
+            or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_decode_attn: q {tuple(q.shape)} vs pages "
                          f"{tuple(k_pages.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -111,24 +176,34 @@ def paged_decode_attn(q, k_pages, v_pages, k_scale, v_scale, block_table,
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged_decode_attn: page planes must be contiguous")
     if kv_bits:
-        if not (k_scale.is_contiguous() and v_scale.is_contiguous()) \
-                or k_scale.shape != (n_pages, page, hkv, 1) \
-                or k_scale.dtype != torch.float32:
-            raise ValueError("paged_decode_attn: scales must be contiguous "
-                             f"(P, page, Hkv, 1) f32, got {tuple(k_scale.shape)}")
-        ks, vs = k_scale.data_ptr(), v_scale.data_ptr()
-    else:
-        ks = vs = None
-    q = q.contiguous()
-    bt = block_table.to(torch.int32).contiguous()
-    lens = seq_lens.to(torch.int32).contiguous()
-    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+        for sc in (k_scale, v_scale):
+            if not sc.is_contiguous() or sc.shape != (n_pages, page, hkv, 1) \
+                    or sc.dtype != torch.float32:
+                raise ValueError("paged_decode_attn: scales must be contiguous "
+                                 f"(P, page, Hkv, 1) f32, got {tuple(sc.shape)}")
+    return _launch(q.contiguous(), k_pages, v_pages,
+                   k_scale if kv_bits else None, v_scale if kv_bits else None,
+                   block_table.to(torch.int32).contiguous(),
+                   seq_lens.to(torch.int32).contiguous(), float(softmax_scale), kv_bits)
+
+
+def _launch(q, k_pages, v_pages, k_scale, v_scale, bt, lens, softmax_scale, kv_bits):
+    """Plan the grid and the workspace from shapes, and launch once."""
+    global launches
+    b, h, d = q.shape
+    page, hkv, dk = k_pages.shape[1:]
     lib = _lib()
+    p = plan(b, h, hkv, d, bt.shape[1], dk * k_pages.element_size(),
+             k_pages.data_ptr() | v_pages.data_ptr(), lib.pages_per_split)
+    stream = _stream(q)
+    ws, counters = _workspace(q.device, stream, p)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     err = lib.paged_attn_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
-        v_pages.data_ptr(), ks, vs, bt.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, h, hkv, d, page, bt.shape[1], kv_bits,
-        float(softmax_scale), torch.cuda.current_stream(q.device).cuda_stream)
+        v_pages.data_ptr(), None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(), bt.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+        b, h, hkv, d, page, bt.shape[1], kv_bits, p.copy_w, softmax_scale, stream)
     if err:
         raise RuntimeError(f"paged_decode_attn kernel launch failed: "
                            f"{lib.paged_attn_error_string(err).decode()}")

@@ -178,6 +178,119 @@ def test_paged_attn_kernel_matches_plain(cuda, kv_bits, g):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+# (H, Hkv, D): gemma-2b's MQA, gemma-7b's MHA, granite-3-8b's GQA and the
+# small pools above
+ATTN_LAYOUTS = [(8, 1, 256), (16, 16, 256), (32, 8, 128), (4, 1, 16), (4, 2, 16)]
+
+
+def _attn_lens(page):
+    """Lengths at every edge of a page and of a split, and a long row."""
+    split = tpa._lib().pages_per_split * page
+    return [0, 1, page - 1, page, page + 1, split, split + 1, 1003]
+
+
+def _attn_inputs(dev, kv_bits, h, hkv, d, page, lens, qdtype, *, seed=0, extra_cols=0):
+    """q (B, H, D) and a pool holding each row's pages (distinct, shuffled),
+    with block-table columns past a row's pages pointing at other pages."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    need = [-(-n // page) for n in lens]
+    maxp = max(need) + extra_cols
+    n_pages = sum(need) + 1
+    kv = torch.randn(2, n_pages, page, hkv, d, generator=gen, device=dev)
+    kc, ks = tpg.quant_rows(kv[0], kv_bits)
+    vc, vs = tpg.quant_rows(kv[1], kv_bits)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = torch.randint(0, n_pages, (len(lens), maxp), generator=gen, device=dev)
+    start = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[start:start + n]
+        start += n
+    q = torch.randn(len(lens), h, d, generator=gen, device=dev).to(qdtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, ks, vs, bt.to(torch.int32), lens_t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,d", ATTN_LAYOUTS)
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_paged_attn_split_kernel_matches_plain(cuda, h, hkv, d, page, qdtype, kv_bits):
+    args = _attn_inputs(cuda, kv_bits, h, hkv, d, page, _attn_lens(page), qdtype)
+    kw = dict(softmax_scale=d ** -0.5, kv_bits=kv_bits)
+    before = tpa.launches
+    got = tpa.paged_decode_attn(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    want = tpa.paged_decode_attn_plain(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_paged_attn_rows_do_not_depend_on_the_call(cuda, qdtype, kv_bits):
+    """A row's bits depend on its own length alone: alone (B 1, its own
+    block-table columns), in a B 4 call and inside a B 16 call with a wider
+    block table and other rows around it — as in a decode step and in the
+    verify window, whose rows must agree."""
+    lens = [160, 97, 33, 1003]
+    for h, hkv, d in ATTN_LAYOUTS[:3]:
+        kw = dict(softmax_scale=d ** -0.5, kv_bits=kv_bits)
+        q, kc, vc, ks, vs, bt, lens_t = _attn_inputs(cuda, kv_bits, h, hkv, d, 16, lens, qdtype)
+        got = tpa.paged_decode_attn(q, kc, vc, ks, vs, bt, lens_t, **kw)
+        for i, n in enumerate(lens):
+            cols = -(-n // 16)
+            alone = tpa.paged_decode_attn(q[i:i + 1], kc, vc, ks, vs, bt[i:i + 1, :cols],
+                                          lens_t[i:i + 1], **kw)
+            assert torch.equal(alone[0], got[i]), (h, hkv, d, n)
+        # B 16: the four rows at 3, 7, 11, 15 among twelve others, 40 more columns
+        other = [0, 1, 17, 2000, 15, 300, 64, 5, 1, 96, 1500, 33]
+        wide = [*other[:3], lens[0], *other[3:6], lens[1], *other[6:9], lens[2],
+                *other[9:], lens[3]]
+        q2, _, _, _, _, bt2, lens2 = _attn_inputs(cuda, kv_bits, h, hkv, d, 16, wide, qdtype,
+                                                  seed=5, extra_cols=40)
+        at = [3, 7, 11, 15]
+        q2[at] = q
+        bt2[at] = 0
+        bt2[at, :bt.shape[1]] = bt
+        # the other rows' pages must lie in this pool: fold them into it
+        bt2 = torch.where(bt2 >= kc.shape[0], bt2 % kc.shape[0], bt2)
+        got16 = tpa.paged_decode_attn(q2, kc, vc, ks, vs, bt2, lens2, **kw)
+        for j, i in enumerate(at):
+            assert torch.equal(got16[i], got[j]), (h, hkv, d, lens[j])
+
+
+@pytest.mark.gpu
+def test_paged_attn_back_to_back_calls_are_deterministic(cuda):
+    """50 calls alternating between a B 4 decode-like call and a B 16 call
+    with long rows: each kind gives the same bits every time (the arrival
+    counters are back at 0 after every call), one launch each."""
+    kw = dict(softmax_scale=256 ** -0.5, kv_bits=8)
+    small = _attn_inputs(cuda, 8, 8, 1, 256, 16, [160, 97, 33, 1], torch.bfloat16)
+    big = _attn_inputs(cuda, 8, 8, 1, 256, 16,
+                       [4096, 1500, 257, 0, 1, 16, 33, 2048, 700, 5, 90, 3000, 17, 64, 128, 1],
+                       torch.bfloat16, seed=3)
+    before = tpa.launches
+    first = {}
+    for i in range(50):
+        name, args = ("small", small) if i % 2 else ("big", big)
+        out = tpa.paged_decode_attn(*args, **kw)
+        if name in first:
+            assert torch.equal(out, first[name]), i
+        else:
+            first[name] = out
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 50
+    for name, args in (("small", small), ("big", big)):
+        torch.testing.assert_close(first[name], tpa.paged_decode_attn_plain(*args, **kw),
+                                   rtol=0, atol=1e-5)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    _, counters = tpa._WORKSPACE[(small[0].device, stream)]
+    assert not counters.any()
+
+
 DS_SHAPES = [(16, 5000), (13, 1001), (64, 384), (1, 7)]
 
 
