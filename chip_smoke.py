@@ -13,7 +13,8 @@ NVIDIA card.
    bit-equal to the same row computed alone), ``ds_quant`` (bit-exact) and ``qmv``
    at every shape a path launches them at (gisette's batch 16 × 5000,
    gisette's whole matrix row-scaled at s 15, yearprediction's batch
-   16 × 90 at s 7 and 31),
+   16 × 90 at s 7 and 31; ``qmv`` one CUDA launch a call, counted by
+   ``torch.profiler``),
    ``row_absmax`` and ``stoch_quant`` (bit-exact, s 3/15/127, f32 and bf16,
    a NaN row for ``row_absmax``) at gisette's whole sample matrix (6000 ×
    5000), the linear path's batch (16 × 5000) and a ragged (13, 1001) — and
@@ -122,17 +123,23 @@ NVIDIA card.
 9. slice 7 — ``[kernel] ssd_chunk_scan`` (B12): the SSD chunk scan against
    its plain version at mamba2-780m's prefill (B 4, 4 chunks of 256, H 48,
    P 64, N 128, bf16), at the single 1023-row chunk of a 1023-token prompt,
-   and there at f32 with an initial state (rtol = atol = 2e-2 bf16, 1e-4
-   f32), and ``qmm`` at mamba2's int8 in_proj (K 1536, N 6448) and out_proj
-   (K 3072, N 1536) at decode and prefill M. ``[serve-mamba]``: full-width
+   and there at f32 with an initial state (y rtol = atol = 2e-2 bf16, 1e-4
+   f32; the state 1e-4 at both), each on the core ``ssd.plan`` picks from
+   x's dtype (bf16 on the tensor cores, bounded at their rate with the
+   three-pass floor beside it; f32 on the SIMT kernel), two calls
+   bit-equal, and ``qmm`` at mamba2's int8 in_proj (K 1536, N 6448) and
+   out_proj (K 3072, N 1536) at decode and prefill M. ``[serve-mamba]``: full-width
    mamba2-780m through ``repro_torch.launch.serve.serve`` (4 prompts of
    1024 tokens, 32 new tokens, random weights from seed 0) at 8-bit weights
    and at bf16, the ``ssd_chunk_scan`` and ``qmm`` counters set to 0 just
-   before and read just after (48 SSD launches per prefill); then on the
-   same weights prefill(prompt[:, :-1]) + one decode step against
-   prefill(prompt), and a profile of 5 decode steps; every launched shape
-   must have been checked. ``[check]``: the reduced model (chunk 16, f32
-   and bf16, bits 0 and 8) on the card against the CPU's plain path;
+   before and read just after (48 SSD launches per prefill, every one on
+   the tensor cores); then on the same weights prefill(prompt[:, :-1]) +
+   one decode step against prefill(prompt), the bf16 gap reported on the
+   tensor cores and, beside it, with the prefills on the SIMT kernel; a
+   profile of one prefill (its device ms and SSD's share) and of 5 decode
+   steps; every launched shape must have been checked. ``[check]``: the
+   reduced model (chunk 16, f32 and bf16, bits 0 and 8) on the card against
+   the CPU's plain path;
 10. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
@@ -317,6 +324,10 @@ SSD_CASES = [((4, 4, 256, 48, 64, 128), "bfloat16", False, "prefill, 4 chunks"),
 # rtol and atol: the reference's own for its Pallas kernel
 # (tests/test_kernels.py): f32 sums in another order; at bf16 y rounds once more
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the final state, rtol and atol at both dtypes: bf16 x, B and C are exact
+# tensor-core operands and the f32 ones split exactly into three bf16
+# pieces, so only f32 rounding is left
+SSD_STATE_TOL = 1e-4
 # prefill(prompt[:, :-1]) + one decode_step against prefill(prompt)'s last
 # logits at full width: within 2e-2 of the largest |logit|, gated at f32
 # (f32 weights and activations), where the reference's own test of this
@@ -809,14 +820,39 @@ def check_ds_quant(dev, flush):
     return rows
 
 
+def _cuda_launches(fn, calls: int = 5) -> tuple[float, list[str]]:
+    """Device events (kernels and memsets alike) per call of ``fn``, over
+    ``calls`` calls under ``torch.profiler``, after a warm-up call. A
+    session that records no device event at all (CUPTI coming up late) is
+    a failed reading and is taken again, at most twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return sum(e.count for e in events) / calls, [e.key[:60] for e in events]
+
+
 def check_qmv(dev, flush):
     """``qmv`` kernel against its plain version (rel 1e-5 of the largest
-    output), on planes and on their transposed views; ``torch.mv`` on codes
-    pre-converted to f32 is the library yardstick."""
+    output), on planes and on their transposed views, run-to-run identical;
+    ``torch.mv`` on codes pre-converted to f32 is the library yardstick.
+    Then, every row timed (a profiler session slows the launches timed
+    after it), one CUDA launch per call at every row (``torch.profiler``:
+    no second kernel, no memset)."""
     import torch
     from repro_torch.kernels import qmv as QV
 
-    rows = []
+    rows, calls = [], []
     gen = torch.Generator(device=dev).manual_seed(4)
     for r, c, transposed in QMV_CASES:
         plane = torch.randint(-127, 128, (r, c), generator=gen, device=dev,
@@ -834,6 +870,8 @@ def check_qmv(dev, flush):
                                  f"max err {err} > {QMV_TOL} x {ref_max}")
         if not torch.equal(QV.qmv(codes, v), got):
             raise AssertionError(f"qmv {tuple(codes.shape)}: not run-to-run identical")
+        calls.append((codes, v))
+        p = QV.plan(rr, cc, *codes.stride(), codes.data_ptr())
         codes_f32 = codes.to(torch.float32)
         ms = _timed(lambda: QV.qmv(codes, v), flush)
         plain_ms = _timed(lambda: QV.qmv_plain(codes, v), flush)
@@ -842,13 +880,22 @@ def check_qmv(dev, flush):
         bound_ms, bound_by = _bound(nbytes, 2 * rr * cc, F32_FLOPS)
         view = "transposed view " if transposed else ""
         rows.append({"name": f"qmv int8 {view}R{rr} C{cc}",
-                     "key": (rr, cc, transposed and rr > 1),
+                     "key": (rr, cc, p.layout == "cols"),   # the wrapper's shape key
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[kernel] qmv {view}(R,C)=({rr},{cc}): max_err={err:.3e} (tol {QMV_TOL:g} x "
+        print(f"[kernel] qmv {view}(R,C)=({rr},{cc}): {p.layout} width {p.width} unroll "
+              f"{p.unroll} splits {p.splits}; max_err={err:.3e} (tol {QMV_TOL:g} x "
               f"{ref_max:.3g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (torch.mv on f32 codes) bound_ms={bound_ms:.5f} "
               f"({bound_by}, {nbytes} bytes at 3.35 TB/s)", flush=True)
+    for r, (codes, v) in zip(rows, calls):
+        n_cuda, names = _cuda_launches(lambda: QV.qmv(codes, v))
+        if n_cuda != 1:
+            raise AssertionError(f"qmv {tuple(codes.shape)}: {n_cuda} device launches a "
+                                 f"call ({names}), not 1")
+        r["cuda_launches_per_call"] = n_cuda
+    print("[kernel] qmv cuda launches per call (torch.profiler, 5 calls a row): " + ", ".join(
+        f"{r['name'][9:]} {r['cuda_launches_per_call']:g}" for r in rows), flush=True)
     return rows
 
 
@@ -935,7 +982,7 @@ def profile_linear(ds, plan, dev, steps: int = 20):
            "device_busy_share": device_ms / wall_ms if device_ms else None,
            "ported_kernels_ms_per_step": {
                k: sum(v for n, v in by_kernel.items() if k in n) / steps
-               for k in ("ds_quant_kernel", "qmv_rows", "qmv_cols", "chunk_reduce")},
+               for k in ("ds_quant_kernel", "qmv_rows", "qmv_cols")},
            "top_kernels_ms_per_step": {k: v / steps for k, v in top}}
     if device_ms:
         print(f"[linear-profile] {steps} e2e steps: wall {out['wall_ms_per_step']:.3f} ms/step "
@@ -2863,9 +2910,12 @@ def _ssd_inputs(dev, shape, dtype, init, seed=0):
 
 
 def check_ssd(dev, flush):
-    """``ssd_chunk_scan`` against its plain version at ``SSD_CASES``: y and
-    the final state within ``SSD_TOL`` (rtol and atol) and finite; timed
-    beside the plain version and the bound (no PyTorch call computes SSD)."""
+    """``ssd_chunk_scan`` against its plain version at ``SSD_CASES``: y
+    within ``SSD_TOL`` and the final state within ``SSD_STATE_TOL`` (rtol
+    and atol), both finite; each row on the core ``ssd.plan`` picks from
+    x's dtype (bf16 on the tensor cores, f32 on the SIMT kernel), checked
+    through the wrapper's per-core counter; timed beside the plain version
+    and the bound (no PyTorch call computes SSD)."""
     import torch
     from repro_torch.kernels import ssd as SD
 
@@ -2873,18 +2923,24 @@ def check_ssd(dev, flush):
     for shape, dname, init, role in SSD_CASES:
         dtype = getattr(torch, dname)
         args = _ssd_inputs(dev, shape, dtype, init)
+        before = SD.tc_launches
         y, st = SD.ssd_chunk_scan(*args)
+        core = "tc" if SD.tc_launches > before else "simt"
+        if core != SD.plan(dtype, *shape[2:]).core:
+            raise AssertionError(f"ssd_chunk_scan {shape} {dname}: ran on {core}")
         y_ref, st_ref = SD.ssd_chunk_scan_plain(*args)
         torch.cuda.synchronize()
-        tol = SSD_TOL[dname]
         errs = {}
-        for what, got, want in (("y", y.float(), y_ref.float()), ("state", st, st_ref)):
+        for what, got, want, tol in (("y", y.float(), y_ref.float(), SSD_TOL[dname]),
+                                     ("state", st, st_ref, SSD_STATE_TOL)):
             if not torch.isfinite(got).all():
                 raise AssertionError(f"ssd_chunk_scan {shape} {dname}: {what} not finite")
             errs[what] = float((got - want).abs().max())
             if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
                 raise AssertionError(f"ssd_chunk_scan {shape} {dname}: {what} max err "
                                      f"{errs[what]} beyond rtol = atol = {tol}")
+        if not all(torch.equal(a, b) for a, b in zip(SD.ssd_chunk_scan(*args), (y, st))):
+            raise AssertionError(f"ssd_chunk_scan {shape} {dname}: not run-to-run identical")
         ms = _timed(lambda: SD.ssd_chunk_scan(*args), flush)
         plain_ms = _timed(lambda: SD.ssd_chunk_scan_plain(*args), flush)
         b, nc, L, h, p, n = shape
@@ -2892,20 +2948,32 @@ def check_ssd(dev, flush):
         nbytes = (esz * b * nc * L * (2 * h * p + 2 * n) + 4 * 2 * b * nc * L * h
                   + 4 * b * h * p * n * (2 if init else 1))
         # the three contractions of every (batch, chunk), C·Bᵀ once (one
-        # group) and the causal halves only: the least work for the function
+        # group) and the causal halves only: the least work for the function,
+        # at the rate of the unit that does it (bf16 tensor cores for bf16
+        # x, whose core runs the three contractions other than C·Bᵀ on f32
+        # operands in three bf16 pieces: its own floor is that work three
+        # times; f32 CUDA cores for f32 x)
         tri = L * (L + 1) // 2
         ops = 2 * b * nc * (tri * n + tri * h * p + 2 * L * h * p * n)
-        bound_ms, bound_by = _bound(nbytes, ops, F32_FLOPS)
+        rate = BF16_FLOPS if core == "tc" else F32_FLOPS
+        bound_ms, bound_by = _bound(nbytes, ops, rate)
+        floor_ms = None
+        if core == "tc":
+            floor_ms = max(2 * b * nc * (tri * n + 3 * (tri * h * p + 2 * L * h * p * n))
+                           / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
         name = (f"ssd_chunk_scan {dname} B{b} NC{nc} L{L} H{h} P{p} N{n}"
                 f"{' init' if init else ''} ({role})")
-        rows.append({"name": name, "key": (dname, *shape, init),
+        rows.append({"name": name, "key": (dname, *shape, init), "core": core,
                      "max_abs_err": max(errs.values()), "y_err": errs["y"],
                      "state_err": errs["state"], "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[kernel] {name}: y max_err={errs['y']:.3e} state max_err="
-              f"{errs['state']:.3e} (rtol = atol = {tol:g}) kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
-              f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "three_pass_floor_ms": floor_ms})
+        floor = "" if floor_ms is None else f" three_pass_floor_ms={floor_ms:.4f}"
+        print(f"[kernel] {name}: core={core} y max_err={errs['y']:.3e} (rtol = atol = "
+              f"{SSD_TOL[dname]:g}) state max_err={errs['state']:.3e} (rtol = atol = "
+              f"{SSD_STATE_TOL:g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}; {ops / 1e9:.2f} GFLOP at "
+              f"{rate / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB){floor}", flush=True)
         del args, y, st, y_ref, st_ref
         torch.cuda.empty_cache()
     return rows
@@ -2954,7 +3022,8 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
     the serve step (counters again, 96 SSD launches): prefill(prompt), timed
     (the prefill time), against prefill(prompt[:, :-1]) + one decode step,
     reported at bf16; the serving peak memory; the cache bytes; a profile
-    of one prefill and of 5 decode steps. Then the same consistency at f32 (f32
+    of one prefill (SSD's device ms in it) and of 5 decode steps. Then the
+    same consistency at f32 (f32
     weights, seed 0), gated at ``MAMBA_CONSISTENCY_TOL`` of the largest
     |logit|. Only the serve() calls' launches are the main path's (the
     kernels line); the checks' are reported apart. Every shape either
@@ -2977,7 +3046,7 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
 
     def reset():
         Q.reset_counters()
-        SD.launches = 0
+        SD.launches = SD.tc_launches = 0
         SD.shape_launches.clear()
 
     def read(into):
@@ -3000,6 +3069,9 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
         tokens, tps = S.serve("mamba2-780m", reduced=False, weight_bits=bits, device=dev,
                               **MAMBA)
         wall = time.perf_counter() - t0
+        if SD.tc_launches != SD.launches:
+            raise AssertionError(f"[serve-mamba] bits {bits}: {SD.launches - SD.tc_launches} "
+                                 f"of {SD.launches} SSD launches off the tensor cores")
         launches = read(path)
         call_peak = torch.cuda.max_memory_allocated() - base
         plan = S._resolve_plan(None, 0, bits)
@@ -3036,9 +3108,10 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
             pre_wall_ms = 1e3 * (time.perf_counter() - t0)
         by_kernel, _ = _device_kernels(prof)
         pre_dev = sum(by_kernel.values())
+        pre_ssd = sum(v for k, v in by_kernel.items() if "ssd_" in k)
         pre_top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
         print(f"[profile] one prefill ({bsz} x {plen}): wall {pre_wall_ms:.1f} ms, device "
-              f"busy {pre_dev:.1f} ms; top: " + "; ".join(
+              f"busy {pre_dev:.1f} ms, ssd_chunk_scan {pre_ssd:.2f} ms of it; top: " + "; ".join(
                   f"{k[:40]} {v:.2f}" for k, v in pre_top.items()), flush=True)
         prof_decode = profile_steps(step, params, state, nxt[:, None])
         # serve() times its gen − 1 steady decode steps of the whole batch
@@ -3052,10 +3125,12 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
                "wall_s": wall, "launches": launches, "consistency_launches": cons_launches,
                "consistency_bf16": cons,
                "prefill_profile": {"wall_ms": pre_wall_ms, "device_ms": pre_dev,
-                                   "top_kernels_ms": pre_top},
+                                   "ssd_ms": pre_ssd, "top_kernels_ms": pre_top},
                "decode_profile": prof_decode}
         print(f"[serve-mamba] mamba2-780m full width, weight bits {bits or 'bf16'}: tokens "
-              f"{tuple(tokens.shape)}; prefill {run['prefill_ms']:.1f} ms ({bsz} x {plen}); "
+              f"{tuple(tokens.shape)}; prefill {run['prefill_ms']:.1f} ms ({bsz} x {plen}; "
+              f"profiled: wall {pre_wall_ms:.1f}, device {pre_dev:.1f}, ssd_chunk_scan "
+              f"{pre_ssd:.2f}); "
               f"decode {run['decode_ms_per_step']:.2f} "
               f"ms/step, {tps:.1f} tok/s; peak {call_peak / 2**30:.2f} GiB over the serve() "
               f"call (weight init included), {serving_peak / 2**30:.2f} GiB serving "

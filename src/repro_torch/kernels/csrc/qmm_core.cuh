@@ -32,19 +32,6 @@ constexpr int kCoreTc = 1;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// byte q of w (an int8 code) as an exact float: 2²³ + (code + 128) built
-// bit-wise by one byte permute, less 2²³ + 128 — integer and FADD pipes
-// only (I2F runs at a quarter of their rate)
-template <int Q>
-__device__ __forceinline__ float int8_at(uint32_t w_xor80) {
-  return __uint_as_float(__byte_perm(w_xor80, 0x4B000000u, 0x7440 | Q)) - 8388736.f;
-}
-// byte q of w, which holds a nibble 0..15 (offset-binary int4 code + 8)
-template <int Q>
-__device__ __forceinline__ float nib_at(uint32_t nibbles) {
-  return __uint_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7440 | Q)) - 8388616.f;
-}
-
 // one 32-bit word of codes → its 4 int8 / 8 int4 values (int4: even column
 // in the low nibble)
 template <bool PACKED>

@@ -446,21 +446,6 @@ qmm_t_tc(const __nv_bfloat16* __restrict__ pieces, const uint8_t* __restrict__ c
 
 }  // namespace tct
 
-// two values of v → the bf16 pairs of their three pieces: hi = bf16(v),
-// mid = bf16(v − hi), lo = bf16(v − hi − mid), each subtraction exact in f32
-__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uint32_t& mid,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = __fsub_rn(v0, hf.x), r1 = __fsub_rn(v1, hf.y);
-  const __nv_bfloat162 md = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(md);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&md);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // v = g · scale (one f32 rounding, __fmul_rn: never fused into the
 // subtractions) → its three bf16 pieces, into the (M, N) planes hi, mid,
 // lo of pieces. Thread: 8 consecutive columns of a row (16-byte stores

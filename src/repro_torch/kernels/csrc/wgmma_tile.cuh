@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 namespace tc {
@@ -124,23 +126,6 @@ __device__ __forceinline__ void pin(float* d) {
 }
 
 }  // namespace tc
-
-// > 48 KB of dynamic shared memory needs the opt-in, which holds for the
-// current device only: opted_in keeps the devices that have it (one bit
-// each; devices past 64 opt in each time)
-template <typename F>
-inline cudaError_t opt_in_smem(F* kernel, int bytes, unsigned long long& opted_in) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
-  if (!(opted_in & bit)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    opted_in |= bit;
-  }
-  return cudaSuccess;
-}
 
 // the widest piece (≤ cap bytes, a power of two) that both the base
 // address and the row stride are multiples of

@@ -31,7 +31,10 @@ version; the reduced model with quantized
 embedding tables served on the card against the CPU's plain path: greedy
 tokens equal; ``ssd_chunk_scan`` 1e-4 (rtol and atol) at f32 and 2e-2 at
 bf16 against its plain version, the reference's tolerances for its Pallas
-kernel (f32 sums in another order; at bf16 y rounds once more), and the
+kernel (f32 sums in another order; at bf16 y rounds once more), its state
+1e-4 at both (bf16 x, B and C are exact operands of the tensor cores, and
+their f32 operands split exactly into three bf16 pieces), the same against
+the tensor cores' order in torch, and two calls bit-equal; and the
 reduced mamba2-780m served on the card against the CPU's plain path:
 greedy tokens equal.
 """
@@ -464,9 +467,11 @@ def test_quantize_rows_and_ds_quantize_launch_counts(cuda):
     assert torch.equal(sc, scale)
 
 
-QMV_CASES = [((16, 5000), False), ((16, 5000), True), ((1024, 2048), False),
-             ((1024, 2048), True), ((13, 1001), False), ((13, 1001), True),
-             ((1, 5), False), ((3, 1), True)]
+QMV_CASES = [((16, 5000), False), ((16, 5000), True), ((16, 90), False), ((16, 90), True),
+             ((1024, 2048), False), ((1024, 2048), True), ((13, 1001), False),
+             ((13, 1001), True), ((1, 5), False), ((3, 1), True),
+             # C past one step of a block: split, merged by the last block
+             ((3, 70000), False), ((5, 3001), False), ((5000, 300), True), ((1001, 7), True)]
 
 
 @pytest.mark.gpu
@@ -482,8 +487,8 @@ def test_qmv_kernel_matches_plain(cuda, shape, transposed):
     assert tqmv.launches == before + 1
     want = tqmv.qmv_plain(codes, v)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
-    again = tqmv.qmv(codes, v)
-    assert torch.equal(got, again)                      # fixed reduction order
+    for _ in range(3):
+        assert torch.equal(tqmv.qmv(codes, v), got)     # fixed reduction order
 
 
 @pytest.mark.gpu
@@ -495,6 +500,32 @@ def test_qmv_kernel_strided_views(cuda):
         want = tqmv.qmv_plain(codes, v)
         torch.testing.assert_close(tqmv.qmv(codes, v), want, rtol=1e-5,
                                    atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,transposed", QMV_CASES)
+def test_qmv_is_one_launch_and_no_memset(cuda, shape, transposed):
+    """One device kernel per call at every shape, the split ones included
+    (the merge is the last block's, the counters reset by it): nothing
+    else on the card, no memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plane = torch.randint(-127, 128, shape, dtype=torch.int8, device=cuda)
+    codes = plane.T if transposed else plane
+    v = torch.randn(codes.shape[1], device=cuda)
+    want = tqmv.qmv(codes, v)                           # plans and allocates the workspace
+    torch.cuda.synchronize()
+    for _ in range(3):      # a session with no device event at all is a failed reading
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = [tqmv.qmv(codes, v) for _ in range(5)]
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    assert sum(e.count for e in events) == 5, [(e.key, e.count) for e in events]
+    assert len(events) == 1 and "qmv_" in events[0].key
+    assert all(torch.equal(g, want) for g in got)
 
 
 @pytest.mark.gpu
@@ -931,6 +962,7 @@ def test_quantized_table_engine_card_matches_cpu_plain_path(cuda, bits):
 
 
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SSD_STATE_TOL = 1e-4
 # (B, NC, L, H, P, N): ragged tiles, mamba2-780m's prefill (4 chunks of 256)
 # and the single 1023-row chunk of a 1023-token prompt
 SSD_SHAPES = [(2, 3, 40, 3, 16, 16), (1, 2, 33, 2, 64, 8), (4, 4, 256, 48, 64, 128),
@@ -963,16 +995,39 @@ def _ssd_inputs(dev, b, nc, L, h, p, n, dtype, init=False, strided=False, seed=0
 @pytest.mark.parametrize("init", [False, True])
 def test_ssd_chunk_scan_kernel_matches_plain(cuda, shape, dtype, init):
     args = _ssd_inputs(cuda, *shape, dtype, init=init, strided=shape[0] == 2)
-    before = tssd.launches
+    before = (tssd.launches, tssd.tc_launches)
     y, st = tssd.ssd_chunk_scan(*args)
-    assert tssd.launches == before + 1
+    # bf16 x on the tensor cores, f32 on the SIMT kernel
+    assert (tssd.launches, tssd.tc_launches) == (before[0] + 1,
+                                                 before[1] + (dtype == torch.bfloat16))
     y_ref, st_ref = tssd.ssd_chunk_scan_plain(*args)
     torch.cuda.synchronize()
     assert y.dtype == dtype and st.dtype == torch.float32
     assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(st, st_ref, rtol=tol, atol=tol)
+    # the state at 1e-4 at both dtypes: bf16 x, B and C split nothing, and
+    # the tensor cores' f32 operands are split exactly into three pieces
+    torch.testing.assert_close(st, st_ref, rtol=SSD_STATE_TOL, atol=SSD_STATE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_tensor_cores_match_their_order_and_repeat(cuda, shape, init):
+    """The tensor-core core against its own order written out in torch
+    (``ssd_chunk_scan_tc_plain``: y within SSD_TOL, the state within 1e-4),
+    and two calls bit-equal (no atomics in any sum)."""
+    args = _ssd_inputs(cuda, *shape, torch.bfloat16, init=init, strided=shape[0] == 2, seed=3)
+    y, st = tssd.ssd_chunk_scan(*args)
+    y_tc, st_tc = tssd.ssd_chunk_scan_tc_plain(*args)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), y_tc.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_tc, rtol=SSD_STATE_TOL, atol=SSD_STATE_TOL)
+    for _ in range(2):
+        y2, st2 = tssd.ssd_chunk_scan(*args)
+        assert torch.equal(y2, y) and torch.equal(st2, st)
 
 
 @pytest.mark.gpu
