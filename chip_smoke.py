@@ -13,8 +13,15 @@ NVIDIA card.
    bit-equal to the same row computed alone), ``ds_quant`` (bit-exact) and ``qmv``
    at every shape a path launches them at (gisette's batch 16 × 5000,
    gisette's whole matrix row-scaled at s 15, yearprediction's batch
-   16 × 90 at s 7 and 31; ``qmv`` one CUDA launch a call, counted by
-   ``torch.profiler``),
+   16 × 90 at s 7 and 31; ``ds_quant``'s keyed entry, which hashes its
+   rounding words in registers, bit-exact with its rand entry; ``qmv`` one
+   CUDA launch a call, counted by ``torch.profiler``), the threefry plane
+   kernel bit-exact with its int64 path (int32, int64 and f32 planes,
+   one key and batched keys, ragged n, counter windows across 2³²) and timed
+   at the planes the paths draw against max(bytes / HBM rate, its int32
+   operations / the card's int32 rate) — after the paths, every other
+   (out, keys, n) they launched it at gets a bit-exact, timed row too, and
+   the run fails if a launch of the paths has no row —
    ``row_absmax`` and ``stoch_quant`` (bit-exact, s 3/15/127, f32 and bf16,
    a NaN row for ``row_absmax``) at gisette's whole sample matrix (6000 ×
    5000), the linear path's batch (16 × 5000) and a ragged (13, 1001) — and
@@ -140,7 +147,13 @@ NVIDIA card.
    steps; every launched shape must have been checked. ``[check]``: the
    reduced model (chunk 16, f32 and bf16, bits 0 and 8) on the card against
    the CPU's plain path;
-10. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
+10. every plane the paths draw on the card takes the threefry kernel: a
+   phase fails if ``prng`` made an int64 hash on the card in it (its
+   counter, set to 0 just before each phase but the kernels'), and the main
+   paths' plane launches are counted by (output, keys, size) for the
+   ``kernels`` line; ``quant_adamw`` pass 2 and ``ds_quant`` run their keyed
+   entries on the paths (their rand entries 0 launches);
+11. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -149,6 +162,7 @@ machine without a card, or a directory without the repository's sources.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -162,6 +176,34 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
+# 32-bit integer add, logic and shift results per clock per SM: the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table, compute
+# capability 9.0; times the SMs and the card's maximum SM clock as nvidia-smi
+# reports it (clocks.max.sm), the int32 rate that bounds the threefry hash.
+# Of a word's 73 operations the 41 funnel shifts and xors run only on the
+# integer ALU pipe at that rate; ptxas issues most adds as IMAD on the FMA
+# pipe, which adds as many a clock (the table's 32-bit integer multiply-add
+# row), so the hash's bound is max(41 at the rate, 73 at twice it)
+INT32_PER_CLK_SM = 64
+INT32_OPS = None              # ops/s, set in main() from the card's clock
+HASH_OPS = 73                 # 32-bit integer operations of one threefry word (threefry.cuh)
+HASH_ALU_OPS = 41             # ... of which funnel shifts and xors: the ALU pipe alone
+# threefry plane kernel rows: (out, key batch, plane shape). Bit-exact at
+# TF_CHECKS; timed at these planes the paths draw (the paths' other planes
+# get rows of their own after the paths run): B4's (16, 5000) in
+# [quantize-rows] (and B1's former (16, 90) plane, now hashed in its
+# registers), the e2e linear step's model and gradient (5000,), [optimal]'s
+# batched level planes (625 steps × 180 keys of the batch's 16 rows, one
+# launch an epoch) and the gate/up leaf's uniform (the model and gradient
+# channels of [train])
+TF_ROWS = [("int32", 1, (16, 90)), ("int32", 1, (16, 5000)), ("f32", 1, (5000,)),
+           ("f32", 625 * 180, (16,)), ("f32", 1, (36864, 16384))]
+# (out, keys, shape, start): one key and batched keys at ragged n, and
+# windows of counters across 2³² (one key and 3 keys)
+TF_CHECKS = [(out, k, shape, start) for out in ("int32", "int64", "f32")
+             for k, shape, start in ((1, (1001,), 0), (1, (16, 90), 0), (180, (16,), 0),
+                                     (3, (333, 7), 0), (1, (100000,), 2 ** 32 - 50000),
+                                     (3, (4099,), 5 * 2 ** 32 - 2000))]
 QMM_SHAPES = [(4, 2048, 2048), (4, 2048, 256), (4, 2048, 16384),
               (4, 16384, 2048), (128, 2048, 16384),
               # the training path: M = B·S = 2048 tokens (slice 3)
@@ -370,6 +412,21 @@ def _timed(fn, flush, iters: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+@contextlib.contextmanager
+def _uncounted():
+    """Threefry launches made inside (timings, profiles after a path's run)
+    count for no path: the plane kernel's counters are put back after."""
+    from repro_torch.kernels import threefry as TF
+
+    saved, n = collections.Counter(TF.shape_launches), TF.launches
+    try:
+        yield
+    finally:
+        TF.shape_launches.clear()
+        TF.shape_launches.update(saved)
+        TF.launches = n
+
+
 def _warm_up(dev, seconds: float = 5.0):
     """Keep the card busy with bf16 matmuls for ``seconds`` before the first
     timed row: in a fresh process the first rows (decode M 4) read up to
@@ -383,9 +440,25 @@ def _warm_up(dev, seconds: float = 5.0):
         torch.cuda.synchronize()
 
 
-def _bound(nbytes: int, ops: int, peak: float = BF16_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+def _bound(nbytes: int, ops: int, peak: float = BF16_FLOPS, *more):
+    """The least time (ms) for ``nbytes`` of HBM traffic and ``ops`` at
+    ``peak`` ops/s (and each further (ops, peak) pair, on pipes of their
+    own): the largest of those times, and which bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(o / pk * 1e3 for o, pk in ((ops, peak), *more))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _int32_rate() -> float:
+    """The card's int32 rate (ops/s): INT32_PER_CLK_SM × SMs × the maximum
+    SM clock nvidia-smi reports."""
+    import torch
+
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_PER_CLK_SM * sms * mhz * 1e6
 
 
 def _core_gate(what: str, mod, checked=None) -> dict:
@@ -783,12 +856,86 @@ def agree_small(dev):
     return out
 
 
+def _tf_keys(k, seed):
+    from repro_torch import prng
+
+    return prng.PRNGKey(seed) if k == 1 else prng.split(prng.PRNGKey(seed), k)
+
+
+def check_threefry(dev, flush):
+    """The threefry plane kernel against its plain version (the int64 path,
+    on the card): bit-exact at every ``TF_CHECKS`` case (int32, int64 and
+    f32 output; one key and batched keys; ragged n; windows across 2³²),
+    then the ``TF_ROWS`` rows (:func:`threefry_rows`)."""
+    import torch
+    from repro_torch.kernels import threefry as TF
+
+    for out, k, shape, start in TF_CHECKS:
+        key = _tf_keys(k, len(shape) + k + start % 97)
+        got = TF.threefry_plane(key, shape, out=out, start=start, device=dev)
+        want = TF.threefry_plane_plain(key, shape, out=out, start=start, device=dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"threefry {out} keys {k} {shape} start {start}: "
+                                 f"{int((got != want).sum())} words differ from the int64 path")
+    print(f"[kernel] threefry: bit-exact with the int64 path at {len(TF_CHECKS)} cases "
+          f"(int32/int64/f32, 1/3/180 keys, ragged n, windows across 2^32)", flush=True)
+    return threefry_rows(dev, flush, TF_ROWS)
+
+
+def threefry_rows(dev, flush, specs):
+    """One row for each (out, keys, shape) of ``specs``: the plane kernel
+    bit-exact with its plain version (the int64 path, on the card), timed
+    beside it and the bound max(bytes written / HBM rate, HASH_ALU_OPS per
+    word / the int32 rate, HASH_OPS per word / twice it). No PyTorch call
+    computes threefry2x32 (library "—"). A row's key is the kernel's
+    ``shape_launches`` key (out, keys, n): the kernel sees a plane as n flat
+    counters a key, whatever its shape."""
+    import torch
+    from repro_torch.kernels import threefry as TF
+
+    rows = []
+    for out, k, shape in specs:
+        key = _tf_keys(k, 7)
+        n = int(np.prod(shape))
+        got = TF.threefry_plane(key, shape, out=out, device=dev)
+        iters = 3 if k * n > 1 << 24 else 20
+        want = TF.threefry_plane_plain(key, shape, out=out, device=dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"threefry {out} keys {k} {shape}: differs from the int64 path")
+        del got, want
+        ms = _timed(lambda: TF.threefry_plane(key, shape, out=out, device=dev), flush)
+        plain_ms = _timed(lambda: TF.threefry_plane_plain(key, shape, out=out, device=dev),
+                          flush, iters=iters)
+        words = k * n
+        nbytes = words * (8 if out == "int64" else 4) + (16 * k if k > 1 else 0)
+        bound_ms, bound_by = _bound(nbytes, HASH_ALU_OPS * words, INT32_OPS,
+                                    (HASH_OPS * words, 2 * INT32_OPS))
+        keys = f"{k} keys × " if k > 1 else ""
+        rows.append({"name": f"threefry {out} {keys}{'x'.join(map(str, shape))}",
+                     "key": (out, k, n), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"[kernel] threefry {out} {keys}{shape}: bit-exact kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} (int64 path) library_ms=— bound_ms={bound_ms:.5f} "
+              f"({bound_by}: {nbytes} bytes at 3.35 TB/s; {HASH_ALU_OPS} shifts and xors a "
+              f"word at {INT32_OPS / 1e12:.3f} T/s, all {HASH_OPS} int32 ops at twice that)",
+              flush=True)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_ds_quant(dev, flush):
-    """``ds_quant`` kernel against its plain version: bit-exact codes for
-    every case at ``DS_S`` and the case's own s; timed at the case's s."""
+    """``ds_quant`` against its plain version: the rand entry bit-exact for
+    every case at ``DS_S`` and the case's own s, the keyed entry bit-exact
+    with the rand entry on the key's ``prng.bits`` plane there too; both
+    timed at the case's s. The keyed entry's plain version draws the plane
+    by the int64 path; its bound counts 6 bytes an element and the hash's
+    int32 operations."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import stoch_quant as SQ
+    from repro_torch.kernels import threefry as TF
 
     rows = []
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -796,35 +943,53 @@ def check_ds_quant(dev, flush):
         x = torch.randn(r, c, generator=gen, device=dev) * 2
         a = x.abs()
         scale = a.amax(0, keepdim=True) if axis == "col" else a.amax(1, keepdim=True)
-        rand = prng.bits(prng.PRNGKey(r + c), (r, c), device=dev).to(torch.int32)
+        key = prng.PRNGKey(r + c)
+        rand = prng.bits(key, (r, c), device=dev, dtype=torch.int32)
         checked = sorted({*DS_S, s_case})
         for s in checked:
             got = SQ.ds_quant(x, rand, scale, s=s, scale_axis=axis)
             want = SQ.ds_quant_plain(x, rand, scale, s=s)
+            keyed = SQ.ds_quant_keyed(x, key, scale, s=s, scale_axis=axis)
             torch.cuda.synchronize()
             diff = sum(int((g != w).sum()) for g, w in zip(got, want))
-            if diff:
-                raise AssertionError(f"ds_quant ({r},{c}) {axis} s={s}: {diff} codes "
-                                     "differ from the plain version (must be bit-exact)")
+            diff_k = sum(int((g != w).sum()) for g, w in zip(keyed, want))
+            if diff or diff_k:
+                raise AssertionError(f"ds_quant ({r},{c}) {axis} s={s}: {diff} codes (rand "
+                                     f"entry), {diff_k} (keyed) differ from the plain "
+                                     "version (must be bit-exact)")
         s = s_case
         ms = _timed(lambda: SQ.ds_quant(x, rand, scale, s=s, scale_axis=axis), flush)
         plain_ms = _timed(lambda: SQ.ds_quant_plain(x, rand, scale, s=s), flush)
-        nbytes = 4 * r * c + 4 * r * c + 2 * r * c + scale.numel() * 4
-        bound_ms, bound_by = _bound(nbytes, 20 * r * c, F32_FLOPS)
-        rows.append({"name": f"ds_quant f32 R{r} C{c} {axis}-scaled s{s}", "key": (r, c, axis),
-                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[kernel] ds_quant (R,C)=({r},{c}) {axis}-scaled: bit-exact at s={checked} "
-              f"kernel_ms={ms:.4f} (s={s}) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
-              f"({bound_by}, {nbytes} bytes at 3.35 TB/s)", flush=True)
+        keyed_ms = _timed(lambda: SQ.ds_quant_keyed(x, key, scale, s=s, scale_axis=axis), flush)
+        keyed_plain_ms = _timed(lambda: SQ.ds_quant_plain(
+            x, TF.threefry_plane_plain(key, (r, c), out="int32", device=dev), scale, s=s),
+            flush, iters=5)
+        for keyed_row, k_ms, p_ms, per_elem in ((False, ms, plain_ms, 10),
+                                                (True, keyed_ms, keyed_plain_ms, 6)):
+            nbytes = per_elem * r * c + scale.numel() * 4
+            more = [(HASH_ALU_OPS * r * c, INT32_OPS)] if keyed_row else []
+            bound_ms, bound_by = _bound(nbytes, 20 * r * c, F32_FLOPS, *more)
+            entry = "keyed " if keyed_row else ""
+            rows.append({"name": f"ds_quant {entry}f32 R{r} C{c} {axis}-scaled s{s}",
+                         "key": (r, c, axis, keyed_row), "max_abs_err": 0.0, "ms": k_ms,
+                         "plain_ms": p_ms, "library_ms": None, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+            print(f"[kernel] ds_quant {entry}(R,C)=({r},{c}) {axis}-scaled: bit-exact at "
+                  f"s={checked} kernel_ms={k_ms:.4f} (s={s}) plain_ms={p_ms:.4f}"
+                  f"{' (int64 plane + plain)' if keyed_row else ''} bound_ms={bound_ms:.5f} "
+                  f"({bound_by}, {nbytes} bytes at 3.35 TB/s"
+                  f"{f', {HASH_ALU_OPS} int32 shifts and xors an element' if keyed_row else ''})",
+                  flush=True)
     return rows
 
 
 def _cuda_launches(fn, calls: int = 5) -> tuple[float, list[str]]:
     """Device events (kernels and memsets alike) per call of ``fn``, over
     ``calls`` calls under ``torch.profiler``, after a warm-up call. A
-    session that records no device event at all (CUPTI coming up late) is
-    a failed reading and is taken again, at most twice."""
+    session that records no device event at all, or a count of events that
+    ``calls`` calls cannot make (CUPTI coming up late drops a session's
+    first events: 4 of 5 calls' launches were seen once), is a failed
+    reading and is taken again, at most twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -837,7 +1002,7 @@ def _cuda_launches(fn, calls: int = 5) -> tuple[float, list[str]]:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if events:
+        if events and sum(e.count for e in events) % calls == 0:
             break
     return sum(e.count for e in events) / calls, [e.key[:60] for e in events]
 
@@ -901,12 +1066,14 @@ def check_qmv(dev, flush):
 
 def train_linear_full(dev):
     """Drive slice 2's main path once: LS-SVM on gisette (6000 × 5000) at
-    e2e 6/8/8 bits, with the ds_quant and qmv counters set to 0 just before
-    and read just after; then the fp32 run and the convergence check."""
+    e2e 6/8/8 bits, with the ds_quant, qmv and threefry counters set to 0
+    just before and read just after; then the fp32 run and the convergence
+    check."""
     import torch
     from repro_torch.core.linear import make_dataset, train_linear
     from repro_torch.kernels import qmv as QV
     from repro_torch.kernels import stoch_quant as SQ
+    from repro_torch.kernels import threefry as TF
     from repro_torch.quant import PrecisionPlan
 
     t0 = time.perf_counter()
@@ -920,28 +1087,34 @@ def train_linear_full(dev):
         SQ.reset_counts()
         QV.launches = 0
         QV.shape_launches.clear()
+        TF.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = train_linear(ds, plan, device=dev, **LINEAR)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"ds_quant": SQ.launches, "qmv": QV.launches}
+        launches = {"ds_quant_keyed": SQ.keyed_launches, "qmv": QV.launches,
+                    "ds_quant": SQ.launches, "threefry": TF.launches}
         if not np.isfinite(res.losses).all() or res.x.shape != (ds.n_features,):
             raise AssertionError(f"[linear] {name}: losses {res.losses}, x {res.x.shape}")
         runs[name] = {"losses": res.losses.tolist(), "wall_s": wall,
                       "ms_per_step": 1e3 * wall / steps, "steps_per_s": steps / wall,
                       "launches": launches,
                       "ds_shape_launches": [[*k, n] for k, n in SQ.shape_launches.items()],
-                      "qmv_shape_launches": [[*k, n] for k, n in QV.shape_launches.items()]}
+                      "qmv_shape_launches": [[*k, n] for k, n in QV.shape_launches.items()],
+                      "threefry_shape_launches": [[*k, n] for k, n in
+                                                  TF.shape_launches.items()]}
         print(f"[linear] gisette {ds.a_train.shape} lssvm {name}: {steps} steps in "
               f"{wall:.3f} s = {runs[name]['ms_per_step']:.3f} ms/step, "
               f"{runs[name]['steps_per_s']:.1f} steps/s; epoch losses {res.losses.tolist()}; "
-              f"launches ds_quant={launches['ds_quant']} qmv={launches['qmv']}", flush=True)
+              f"launches {launches}", flush=True)
     e2e, fp32 = runs["e2e"], runs["fp32"]
-    if e2e["launches"] != {"ds_quant": steps, "qmv": 4 * steps}:
-        raise AssertionError(f"[linear] e2e launches {e2e['launches']}, expected "
-                             f"ds_quant {steps} and qmv {4 * steps}")
-    if fp32["launches"] != {"ds_quant": 0, "qmv": 0}:
+    # an e2e step: B1's keyed entry, four qmv, and the two uniform planes of
+    # the model's and the gradient's stochastic rounding
+    want = {"ds_quant_keyed": steps, "qmv": 4 * steps, "ds_quant": 0, "threefry": 2 * steps}
+    if e2e["launches"] != want:
+        raise AssertionError(f"[linear] e2e launches {e2e['launches']}, expected {want}")
+    if any(fp32["launches"].values()):
         raise AssertionError(f"[linear] fp32 run launched kernels: {fp32['launches']}")
     limit = 1.4 * fp32["losses"][-1] + 1e-4
     if not e2e["losses"][-1] <= limit:
@@ -949,7 +1122,8 @@ def train_linear_full(dev):
                              f"+ 1e-4 = {limit}")
     print(f"[linear] convergence: e2e {e2e['losses'][-1]:.6f} <= 1.4 x fp32 "
           f"{fp32['losses'][-1]:.6f} + 1e-4 = {limit:.6f}", flush=True)
-    prof = profile_linear(ds, plans["e2e"], dev)
+    with _uncounted():
+        prof = profile_linear(ds, plans["e2e"], dev)
     return {"dataset": "gisette", "shape": list(ds.a_train.shape), "steps": steps,
             "data_s": data_s, **LINEAR, "runs": runs, "loss_limit": limit,
             "profile": prof}
@@ -982,7 +1156,7 @@ def profile_linear(ds, plan, dev, steps: int = 20):
            "device_busy_share": device_ms / wall_ms if device_ms else None,
            "ported_kernels_ms_per_step": {
                k: sum(v for n, v in by_kernel.items() if k in n) / steps
-               for k in ("ds_quant_kernel", "qmv_rows", "qmv_cols")},
+               for k in ("ds_quant_kernel", "qmv_rows", "qmv_cols", "threefry_plane")},
            "top_kernels_ms_per_step": {k: v / steps for k, v in top}}
     if device_ms:
         print(f"[linear-profile] {steps} e2e steps: wall {out['wall_ms_per_step']:.3f} ms/step "
@@ -1009,7 +1183,7 @@ def agree_linear(dev):
 
     ds = make_dataset("synthetic100", n_train=256, n_test=64)
     plan = PrecisionPlan("e2e", sample_bits=6, model_bits=8, grad_bits=8, backend="cuda")
-    inner = SQ.ds_quant
+    inner = SQ.ds_quant_keyed      # what ops.ds_quantize calls
     out = {}
     for where in (dev, "cpu"):
         codes = []
@@ -1019,11 +1193,11 @@ def agree_linear(dev):
             codes.append((c1.cpu(), c2.cpu()))
             return c1, c2
 
-        SQ.ds_quant = record
+        SQ.ds_quant_keyed = record
         try:
             res = train_linear(ds, plan, model="lssvm", epochs=2, lr=0.3, device=where)
         finally:
-            SQ.ds_quant = inner
+            SQ.ds_quant_keyed = inner
         out[str(where)] = (res, codes)
     (card, card_codes), (cpu, cpu_codes) = out[str(dev)], out["cpu"]
     steps = 2 * (256 // 16)
@@ -1134,13 +1308,17 @@ def check_qmm_t(dev, flush):
 def check_quant_adamw(dev, flush):
     """Both passes of ``quant_adamw`` against ``quant_adamw_ref`` (the
     reference's contract: masters rtol 2e-6 / atol 2e-6, scales rtol 1e-6,
-    ≥ 99.9 % of codes equal) at every leaf shape of the training path; each
-    pass timed against its plain version and its byte bound (pass 1 reads 6
-    bytes per element, pass 2 moves 20; no PyTorch call computes the same
-    function)."""
+    ≥ 99.9 % of codes equal) at every leaf shape of the training path, and
+    pass 2's keyed entry bit-equal (masters and codes) to its rand entry on
+    the key's ``prng.bits`` plane; each pass timed against its plain version
+    and its bound (pass 1 reads 6 bytes per element, pass 2 moves 20, keyed
+    16 and the hash's int32 operations; its plain version draws the plane by
+    the int64 path; no PyTorch call computes the same function)."""
     import torch
+    from repro_torch import prng
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quant_adamw as QA
+    from repro_torch.kernels import threefry as TF
 
     rows, gen = [], torch.Generator(device=dev).manual_seed(6)
     for r, c in ADAMW_SHAPES:
@@ -1170,27 +1348,45 @@ def check_quant_adamw(dev, flush):
                               dtype=torch.float32, device=dev)
         ukw = dict(kw, eps=ADAMW_KW["eps"], wd=ADAMW_KW["wd"], qmax=127,
                    uclip=ADAMW_KW["uclip"])
-        upd_args = (master, g, mc, ms, vc, vs, msn, vsn, rand, params)
-        for name, fn, plain, nbytes, ops_per_elem in (
+        upd_args = (master, g, mc, ms, vc, vs, msn, vsn)
+        key = prng.PRNGKey(r + c)
+        keyed = QA.qadamw_update(*upd_args, None, params, key=key, **ukw)
+        on_plane = QA.qadamw_update(*upd_args, prng.bits(key, (r, c), device=dev,
+                                                         dtype=torch.int32), params, **ukw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(keyed, on_plane)):
+            raise AssertionError(f"quant_adamw ({r},{c}): the keyed entry is not bit-equal "
+                                 "to the rand entry on the key's plane")
+        del keyed, on_plane
+        for name, fn, plain, nbytes, ops_per_elem, more in (
                 ("qadamw_absmax",
                  lambda: QA.qadamw_absmax(g, mc, ms, vc, vs, params, **kw),
                  lambda: QA.qadamw_absmax_plain(g, mc, ms, vc, vs, params, **kw),
-                 6 * r * c + 8 * c + 8 * -(-r // QA.ROWS_PER_BLOCK) * c, 15),
+                 6 * r * c + 8 * c + 8 * -(-r // QA.ROWS_PER_BLOCK) * c, 15, []),
                 ("qadamw_update",
-                 lambda: QA.qadamw_update(*upd_args, **ukw),
-                 lambda: QA.qadamw_update_plain(*upd_args, **ukw),
-                 20 * r * c + 16 * c, 40)):
+                 lambda: QA.qadamw_update(*upd_args, rand, params, **ukw),
+                 lambda: QA.qadamw_update_plain(*upd_args, rand, params, **ukw),
+                 20 * r * c + 16 * c, 40, []),
+                ("qadamw_update_keyed",
+                 lambda: QA.qadamw_update(*upd_args, None, params, key=key, **ukw),
+                 lambda: QA.qadamw_update_plain(
+                     *upd_args, TF.threefry_plane_plain(key, (r, c), out="int32", device=dev), params, **ukw),
+                 16 * r * c + 16 * c, 40, [(HASH_ALU_OPS * r * c, INT32_OPS)])):
             k_ms = _timed(fn, flush, iters=10)
             plain_ms = _timed(plain, flush, iters=3)
-            bound_ms, bound_by = _bound(nbytes, ops_per_elem * r * c, F32_FLOPS)
-            rows.append({"name": f"quant_adamw pass {1 if name == 'qadamw_absmax' else 2} "
-                                 f"({name}) R{r} C{c}", "key": (name, r, c),
-                         "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
-                         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+            bound_ms, bound_by = _bound(nbytes, ops_per_elem * r * c, F32_FLOPS, *more)
+            label = {"qadamw_absmax": "pass 1", "qadamw_update": "pass 2",
+                     "qadamw_update_keyed": "pass 2 keyed"}[name]
+            rows.append({"name": f"quant_adamw {label} ({name}) R{r} C{c}",
+                         "key": (name, r, c), "max_abs_err": err, "ms": k_ms,
+                         "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
             print(f"[kernel] quant_adamw {name} (R,C)=({r},{c}): masters max_err={err:.3e} "
                   f"(rtol 2e-6), codes equal >= {same:.5f} kernel_ms={k_ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
-                  f"{nbytes} bytes at 3.35 TB/s)", flush=True)
+                  f"{nbytes} bytes at 3.35 TB/s"
+                  f"{f', {HASH_ALU_OPS} int32 shifts and xors an element' if more else ''})",
+                  flush=True)
         del args, upd_args, master, g, mc, vc, rand, msn, vsn
         torch.cuda.empty_cache()
     return rows
@@ -1201,26 +1397,34 @@ def _train_counters(reset: bool = False):
     from repro_torch.kernels import qmm_t as QT
     from repro_torch.kernels import quant_adamw as QA
 
+    from repro_torch.kernels import threefry as TF
+
     if reset:
         Q.reset_counters()
         QT.reset_counters()
-        QA.absmax_launches = QA.update_launches = 0
+        QA.absmax_launches = QA.update_launches = QA.keyed_update_launches = 0
         QA.shape_launches.clear()
+        TF.reset_counts()
     return {"qmm": Q.launches, "qmm_t": QT.launches,
-            "qadamw_absmax": QA.absmax_launches, "qadamw_update": QA.update_launches}
+            "qadamw_absmax": QA.absmax_launches,
+            "qadamw_update_keyed": QA.keyed_update_launches, "threefry": TF.launches,
+            "qadamw_update": QA.update_launches}
 
 
 def train_full(dev, checked):
     """Drive slice 3's main path once: full-width gemma-2b through
     ``repro_torch.launch.train.make_trainer`` + ``Trainer.run``, ship-quantized
     int8 weights, int8 gradients with error feedback, int8 AdamW moments,
-    with the four kernels' counters set to 0 just before and read just
-    after; then the bf16 yardstick (no channel, f32 moments), which must
-    launch none of them."""
+    with the kernels' counters set to 0 just before and read just after
+    (``qmm``, ``qmm_t``, pass 1, pass 2's keyed entry — its rand entry must
+    stay at 0 — and the threefry planes of the model and gradient channels);
+    then the bf16 yardstick (no channel, f32 moments), which must launch
+    none of them."""
     import torch
     from repro_torch.kernels import qmm as Q
     from repro_torch.kernels import qmm_t as QT
     from repro_torch.kernels import quant_adamw as QA
+    from repro_torch.kernels import threefry as TF
     from repro_torch.launch.train import make_trainer
     from repro_torch.quant import PrecisionPlan
 
@@ -1248,7 +1452,7 @@ def train_full(dev, checked):
         qmm_t_cores = _qmm_t_core_gate(f"[train] {name}", "tc")
         shapes = {name: [[*key, c] for key, c in counter.items()] for name, counter in
                   (("qmm", Q.shape_launches), ("qmm_t", QT.shape_launches),
-                   ("quant_adamw", QA.shape_launches))}
+                   ("quant_adamw", QA.shape_launches), ("threefry", TF.shape_launches))}
         hist = tr.history
         step_ms = [1e3 * h["seconds"] for h in hist]
         ms = statistics.median(step_ms[1:])
@@ -1276,9 +1480,12 @@ def train_full(dev, checked):
         del tr, state
         torch.cuda.empty_cache()
     all8, bf16 = runs["all8"], runs["bf16"]
-    zero = [k for k, v in all8["launches"].items() if v <= 0]
+    zero = [k for k, v in all8["launches"].items() if v <= 0 and k != "qadamw_update"]
     if zero:
         raise AssertionError(f"[train] kernels {zero} were not launched on the main path")
+    if all8["launches"]["qadamw_update"]:
+        raise AssertionError(f"[train] pass 2 took the rand entry (a moments plane) "
+                             f"{all8['launches']['qadamw_update']} times, not the keyed one")
     if any(bf16["launches"].values()):
         raise AssertionError(f"[train] the bf16 yardstick launched {bf16['launches']}")
     if not all8["losses"][-1] < all8["losses"][0]:
@@ -1289,8 +1496,10 @@ def train_full(dev, checked):
 def profile_train(tr, state, steps: int = 2):
     """Where a training step's time goes: ``torch.profiler`` over ``steps``
     steps — device time by kernel, the device's busy share of the window,
-    and the shares of the ported kernels and of the int64 elementwise
-    kernels (the threefry planes: nothing else in the step runs on int64)."""
+    and the shares of the ported kernels, of the threefry plane kernel and
+    of the int64 kernels (the int64 threefry path's elementwise ops, before
+    the plane kernel; the group must read 0, and the names of any kernel
+    it holds are printed)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1310,10 +1519,14 @@ def profile_train(tr, state, steps: int = 2):
     # qmm_t_stream), which no name of qmm's contains; a split contraction
     # would add qmm_core.cuh's splitk_reduce, which qmm launches too, so
     # the window must hold none (checked below)
+    # the plane kernel's signature holds "long long" too: its group goes
+    # before the int64 one (the first group that matches takes a kernel)
     groups = {"qmm": ("qmm_simt", "qmm_tc", "splitk_reduce"), "qmm_t": ("qmm_t_",),
               "quant_adamw": ("absmax_kernel", "update_kernel"),
+              "threefry (plane kernel)": ("threefry_plane",),
               "threefry (int64 elementwise)": ("long",)}
     by_group = {k: 0.0 for k in groups}
+    group_kernels = {k: collections.Counter() for k in groups}   # ms per step by name
     device_ms, n_events = 0.0, 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -1326,6 +1539,7 @@ def profile_train(tr, state, steps: int = 2):
         for gname, keys in groups.items():
             if any(k in ev.key for k in keys):
                 by_group[gname] += us / 1e3
+                group_kernels[gname][ev.key[:90]] += us / 1e3 / steps
                 break
     after = _train_counters()
     split = sorted(key for key, n in QT.shape_launches.items()
@@ -1334,21 +1548,28 @@ def profile_train(tr, state, steps: int = 2):
         raise AssertionError(f"[train-profile] qmm_t split the contraction at (packed, M, K, "
                              f"N) {split}: its splitk_reduce would count in qmm's group")
     launched = {"qmm": after["qmm"] - before["qmm"], "qmm_t": after["qmm_t"] - before["qmm_t"],
-                "quant_adamw": sum(after[k] - before[k]
-                                   for k in ("qadamw_absmax", "qadamw_update"))}
+                "quant_adamw": sum(after[k] - before[k] for k in
+                                   ("qadamw_absmax", "qadamw_update", "qadamw_update_keyed")),
+                "threefry (plane kernel)": after["threefry"] - before["threefry"]}
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps, "launches": launched,
            "device_events_per_step": n_events / steps,
            "device_ms_per_step": device_ms / steps if device_ms else None,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
            "share_of_device_time": {k: v / device_ms for k, v in by_group.items()}
            if device_ms else None,
-           "ms_per_step_by_group": {k: v / steps for k, v in by_group.items()}}
+           "ms_per_step_by_group": {k: v / steps for k, v in by_group.items()},
+           "kernels_ms_per_step_by_group": {k: dict(v.most_common())
+                                            for k, v in group_kernels.items()}}
     if device_ms:
         print(f"[train-profile] {steps} steps: wall {out['wall_ms_per_step']:.1f} ms/step "
               f"(profiled), {out['device_events_per_step']:.0f} device events/step, device "
               f"busy {out['device_ms_per_step']:.1f} ms/step, busy share "
               f"{out['device_busy_share']:.3f}; share of device time " + ", ".join(
                   f"{k} {v:.3f}" for k, v in out["share_of_device_time"].items()), flush=True)
+        print(f"[train-profile] ms per step by group {out['ms_per_step_by_group']}; int64 "
+              f"kernels (none is threefry's unless TF.int64_cuda_planes > 0, which fails the "
+              f"phase): {dict(group_kernels['threefry (int64 elementwise)']) or 'none'}",
+              flush=True)
         # a group whose kernels launched in the window but read no device
         # time has lost its kernel names (a renamed kernel): its share
         # would silently read 0
@@ -1445,7 +1666,9 @@ def agree_train(dev):
         per_step.append({"master_update_entries_off": n_off, "entries": n_all,
                          "worst_leaf_off": max(o for o, _ in off), "codes_equal": codes})
     card_n = {k: v - before[k] for k, v in _train_counters().items()}
-    if not all(card_n.values()) or any(cpu_n.values()):
+    # pass 2 takes its keyed entry on the card: the rand entry stays at 0
+    if (not all(v for k, v in card_n.items() if k != "qadamw_update")
+            or card_n["qadamw_update"] or any(cpu_n.values())):
         raise AssertionError(f"[check] launches card {card_n}, CPU {cpu_n}")
     rel = np.abs(np.array(card_l) - cpu_l) / np.abs(cpu_l)
     print(f"[check] reduced gemma-2b f32 ship8/grad8/moment8, lr 1e-3, 3 steps: free run "
@@ -1999,19 +2222,21 @@ def quantize_rows_path(dev, ds, flush):
     """The row-scaled quantizer entry points: ``ops.quantize_rows`` and
     ``ops.ds_quantize(scale=None)`` on gisette's sample matrix (6000 × 5000,
     f32) at s 15, then 32 ``quantize_rows`` draws of the linear path's batch
-    (16 × 5000), with the three counters set to 0 just before and read just
-    after. Checks the codes' range, the scales, the launch counts, and that
+    (16 × 5000), with the quantizers' and the threefry counters set to 0
+    just before and read just after. Checks the codes' range, the scales, the launch counts, and that
     the 32 draws' mean lies within 5 standard errors of x (the rounding's
     exact variance w²p(1−p) per element, over all elements and per row)."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import ops
     from repro_torch.kernels import stoch_quant as SQ
+    from repro_torch.kernels import threefry as TF
 
     s = SQ_PATH_S
     x = torch.as_tensor(ds.a_train, dtype=torch.float32).to(dev)
     x16 = x[:16].contiguous()
     SQ.reset_counts()
+    TF.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     codes, scale = ops.quantize_rows(x, s, prng.PRNGKey(1))
@@ -2021,9 +2246,12 @@ def quantize_rows_path(dev, ds, flush):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"row_absmax": SQ.row_absmax_launches, "stoch_quant": SQ.stoch_quant_launches,
-                "ds_quant": SQ.launches}
+                "ds_quant": SQ.launches, "ds_quant_keyed": SQ.keyed_launches,
+                "threefry": TF.launches}
     shapes = dict(SQ.shape_launches)
-    want = {"row_absmax": 2 + SQ_DRAWS, "stoch_quant": 1 + SQ_DRAWS, "ds_quant": 1}
+    # quantize_rows draws its plane (one threefry launch); ds_quantize none
+    want = {"row_absmax": 2 + SQ_DRAWS, "stoch_quant": 1 + SQ_DRAWS, "ds_quant": 0,
+            "ds_quant_keyed": 1, "threefry": 1 + SQ_DRAWS}
     if launches != want:
         raise AssertionError(f"[quantize-rows] launches {launches}, expected {want}")
     top = max(int(codes.abs().max()), int(c1.abs().max()), int(c2.abs().max()))
@@ -2041,15 +2269,18 @@ def quantize_rows_path(dev, ds, flush):
         raise AssertionError(f"[quantize-rows] mean of {SQ_DRAWS} draws off x by {z_all:.2f} "
                              f"standard errors (rows: max {float(z_rows.max()):.2f})")
     key = prng.PRNGKey(1)
-    split = {"quantize_rows": _timed(lambda: ops.quantize_rows(x, s, key), flush, iters=5),
-             "threefry_plane": _timed(lambda: prng.bits(key, x.shape, device=dev,
-                                                        dtype=torch.int32), flush, iters=5),
-             "row_absmax": _timed(lambda: SQ.row_absmax(x), flush),
-             "stoch_quant": None,
-             "ds_quantize": _timed(lambda: ops.ds_quantize(x, s, key), flush, iters=5)}
-    rand = prng.bits(key, x.shape, device=dev, dtype=torch.int32)
-    split["stoch_quant"] = _timed(lambda: SQ.stoch_quant(x, rand, scale, s=s), flush)
-    SQ.reset_counts()             # the timing launches are no part of the path's count
+    with _uncounted():            # the timing launches are no part of the path's count
+        split = {"quantize_rows": _timed(lambda: ops.quantize_rows(x, s, key), flush,
+                                         iters=5),
+                 "threefry_plane": _timed(lambda: prng.bits(key, x.shape, device=dev,
+                                                            dtype=torch.int32), flush,
+                                          iters=5),
+                 "row_absmax": _timed(lambda: SQ.row_absmax(x), flush),
+                 "stoch_quant": None,
+                 "ds_quantize": _timed(lambda: ops.ds_quantize(x, s, key), flush, iters=5)}
+        rand = prng.bits(key, x.shape, device=dev, dtype=torch.int32)
+        split["stoch_quant"] = _timed(lambda: SQ.stoch_quant(x, rand, scale, s=s), flush)
+    SQ.reset_counts()
     out = {"shape": list(x.shape), "s": s, "launches": launches,
            "shape_launches": [[*k, n] for k, n in shapes.items()], "wall_s": wall,
            "draws_mean_z_all": z_all, "draws_mean_z_rows_max": float(z_rows.max()),
@@ -2146,8 +2377,9 @@ def cheb_path(dev, gisette):
         raise AssertionError(f"[cheb] gisette logistic losses {r.losses} do not fall")
     # the reference's Chebyshev, straw-man and refetch gradients call no
     # Pallas kernel, and neither do the port's
-    launched = {"ds_quant": SQ.launches, "qmv": QV.launches,
-                "row_absmax": SQ.row_absmax_launches, "stoch_quant": SQ.stoch_quant_launches}
+    launched = {"ds_quant": SQ.launches, "ds_quant_keyed": SQ.keyed_launches,
+                "qmv": QV.launches, "row_absmax": SQ.row_absmax_launches,
+                "stoch_quant": SQ.stoch_quant_launches}
     if any(launched.values()):
         raise AssertionError(f"[cheb] the §4 runs launched kernels: {launched}")
     return out
@@ -2161,9 +2393,11 @@ def optimal_path(dev):
     read just after: the uniform runs take slice 2's kernels (one
     ``ds_quant`` and four ``qmv`` per step), the optimal-level and fp32
     runs none."""
+    from repro_torch.core import linear as L
     from repro_torch.core.linear import fit_feature_levels, make_dataset
     from repro_torch.kernels import qmv as QV
     from repro_torch.kernels import stoch_quant as SQ
+    from repro_torch.kernels import threefry as TF
     from repro_torch.quant import PrecisionPlan
 
     ds = make_dataset("yearprediction", n_train=10_000, n_test=2000)
@@ -2176,6 +2410,7 @@ def optimal_path(dev):
     SQ.reset_counts()
     QV.launches = 0
     QV.shape_launches.clear()
+    TF.reset_counts()
     for bits in (3, 5):
         for opt in (False, True):
             name = f"{'opt' if opt else 'uni'}{bits}"
@@ -2186,14 +2421,23 @@ def optimal_path(dev):
     r, wall, steps = _fit(ds, PrecisionPlan("full"), dev, **OPTIMAL)
     runs["fp32"] = {"final_loss": float(r.losses[-1]), "wall_s": wall,
                     "ms_per_step": 1e3 * wall / steps}
-    launches = {"ds_quant": SQ.launches, "qmv": QV.launches,
-                "row_absmax": SQ.row_absmax_launches, "stoch_quant": SQ.stoch_quant_launches}
+    launches = {"ds_quant_keyed": SQ.keyed_launches, "qmv": QV.launches,
+                "ds_quant": SQ.launches, "row_absmax": SQ.row_absmax_launches,
+                "stoch_quant": SQ.stoch_quant_launches, "threefry": TF.launches}
     ds_shapes = [[*k, n] for k, n in SQ.shape_launches.items()]
     qmv_shapes = [[*k, n] for k, n in QV.shape_launches.items()]
-    want = {"ds_quant": 2 * steps, "qmv": 8 * steps, "row_absmax": 0, "stoch_quant": 0}
+    tf_shapes = [[*k, n] for k, n in TF.shape_launches.items()]
+    # the optimal-level runs draw each epoch's level planes in batched calls
+    # of at most PLANE_ELEMS elements: 2 × 90 keys of the batch's rows a step
+    per_step = 2 * ds.n_features * 16           # train_linear's default batch
+    chunk = max(1, L.PLANE_ELEMS // per_step)
+    want = {"ds_quant_keyed": 2 * steps, "qmv": 8 * steps, "ds_quant": 0, "row_absmax": 0,
+            "stoch_quant": 0, "threefry": 2 * OPTIMAL["epochs"] * -(-(steps // OPTIMAL[
+                "epochs"]) // chunk)}
     print(f"[optimal] launches over the five runs {launches} (expected {want}: uni3 and uni5 "
-          f"one ds_quant and four qmv per step); ds_quant shapes {ds_shapes}, qmv shapes "
-          f"{qmv_shapes}", flush=True)
+          f"one keyed ds_quant and four qmv per step, opt3 and opt5 one threefry plane per "
+          f"{chunk} steps); ds_quant shapes {ds_shapes}, qmv shapes {qmv_shapes}, threefry "
+          f"shapes {tf_shapes}", flush=True)
     if launches != want:
         raise AssertionError(f"[optimal] launches {launches}, expected {want}")
     for name, run in runs.items():
@@ -2212,7 +2456,7 @@ def optimal_path(dev):
     return {"dataset": "yearprediction", "shape": list(ds.a_train.shape), **OPTIMAL,
             "steps": steps, "runs": runs, "checks": checks, "fit_feature_levels_s": fit_s,
             "launches": launches, "ds_shape_launches": ds_shapes,
-            "qmv_shape_launches": qmv_shapes}
+            "qmv_shape_launches": qmv_shapes, "threefry_shape_launches": tf_shapes}
 
 
 def serve_optimal(dev):
@@ -3244,6 +3488,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    global INT32_OPS
+    INT32_OPS = _int32_rate()
+    print(f"[env] int32 rate {INT32_OPS / 1e12:.3f} T ops/s ({INT32_PER_CLK_SM} a clock per SM, "
+          f"CUDA guide throughput table for compute capability 9.0, at the maximum SM clock "
+          f"nvidia-smi reports)", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -3255,13 +3504,34 @@ def main():
             if "Used" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
+    from repro_torch import prng
+    from repro_torch.kernels import threefry as TF
+
     phase_s = {}
+    tf_path = collections.Counter()     # threefry launches of the main paths by (out, K, n)
 
     def phase(name, fn, *args, **kw):
-        """Run one phase; keep and print its wall seconds."""
+        """Run one phase; keep and print its wall seconds. A main-path phase
+        (not a kernel's, rows' or check's) sets the threefry counters to 0
+        just before and adds what they read just after to ``tf_path``
+        (launches made for timings and profiles are put back, as a phase
+        that resets them for its own gates leaves only its last run's);
+        no phase but a kernel's (whose plain versions take the int64 path)
+        may make an int64 hash on the card: prng's counter of them is set to
+        0 just before and must read 0 just after."""
+        path = not name.startswith(("kernel", "rows", "check"))
+        if path:
+            TF.reset_counts()
+        if not name.startswith("kernel"):
+            TF.int64_cuda_planes = 0
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         phase_s[name] = time.perf_counter() - t0
+        if path:
+            tf_path.update(TF.shape_launches)
+        if not name.startswith("kernel") and TF.int64_cuda_planes:
+            raise AssertionError(f"[{name}] made {TF.int64_cuda_planes} int64 threefry "
+                                 "hashes on the card: every plane must take the kernel")
         print(f"[phase] {name}: {phase_s[name]:.1f} s", flush=True)
         return out
 
@@ -3271,6 +3541,7 @@ def main():
     _warm_up(dev)
     qmm_rows = phase("kernel qmm", check_qmm, dev, flush)
     attn_rows = phase("kernel paged_decode_attn", check_paged_attn, dev, flush)
+    tf_rows = phase("kernel threefry", check_threefry, dev, flush)
     ds_rows = phase("kernel ds_quant", check_ds_quant, dev, flush)
     qmv_rows = phase("kernel qmv", check_qmv, dev, flush)
     qmm_t_rows = phase("kernel qmm_t", check_qmm_t, dev, flush)
@@ -3316,6 +3587,25 @@ def main():
     mamba = phase("serve-mamba", serve_mamba, dev, ssd_rows, mamba_qmm_rows)
     mamba_small = phase("check mamba", agree_mamba, dev)
 
+    # threefry launches on the main paths: the phases' reads (tf_path), and
+    # the runs whose counters are reset again before a later run of the
+    # same phase: [train]'s all8 (before the yardstick) and [linear]'s e2e
+    # (before fp32). Every (out, keys, n) they launched gets a row: the
+    # TF_ROWS rows above, and the rest checked bit-exact and timed here
+    e2e = linear["runs"]["e2e"]
+    for out_, k, n, c in (*training["runs"]["all8"]["shape_launches"]["threefry"],
+                          *e2e["threefry_shape_launches"]):
+        tf_path[(out_, k, n)] += c
+    rest = sorted(set(tf_path) - {r["key"] for r in tf_rows})
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    tf_rows += phase("kernel threefry path shapes", threefry_rows, dev, flush,
+                     [(out_, k, (n,)) for out_, k, n in rest])
+    del flush
+    torch.cuda.empty_cache()
+    unchecked = set(tf_path) - {r["key"] for r in tf_rows}
+    if unchecked:
+        raise AssertionError(f"threefry launched at unchecked shapes {sorted(unchecked)}")
+
     kernels = []
     all8 = {name: {tuple(k[:-1]): k[-1] for k in rows} for name, rows in
             training["runs"]["all8"]["shape_launches"].items()}
@@ -3342,13 +3632,12 @@ def main():
     # reset just before and read just after slice 2's e2e run (column
     # scales), [quantize-rows] (ds_quantize(scale=None): row scales) and
     # [optimal]'s uniform runs (column scales)
-    e2e = linear["runs"]["e2e"]
     ds_path, qmv_path = collections.Counter(), collections.Counter()
     for shp, axis in ((e2e["ds_shape_launches"], "col"), (qrows["shape_launches"], "row"),
                       (optimal["ds_shape_launches"], "col")):
         for kname, rr, cc, n in shp:
-            if kname == "ds_quant":
-                ds_path[(rr, cc, axis)] += n
+            if kname in ("ds_quant", "ds_quant_keyed"):
+                ds_path[(rr, cc, axis, kname == "ds_quant_keyed")] += n
     for shp in (e2e["qmv_shape_launches"], optimal["qmv_shape_launches"]):
         for rr, cc, cols, n in shp:
             qmv_path[(rr, cc, cols)] += n
@@ -3356,6 +3645,12 @@ def main():
         (set(qmv_path) - {r["key"] for r in qmv_rows})
     if unchecked:
         raise AssertionError(f"ds_quant / qmv launched at unchecked shapes {sorted(unchecked)}")
+    for r in tf_rows:
+        r["launches"] = tf_path[r.pop("key")]
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/threefry.cu",
+                        "replaces": "none: jax.random.bits/uniform (XLA threefry2x32, "
+                                    "no pallas_call)", **r})
     for r in ds_rows:
         r["launches"] = ds_path[r.pop("key")]
         kernels.append({"name": r.pop("name"), "route": "cuda",
@@ -3458,7 +3753,8 @@ def main():
               "qmm_qout_extra": extra, "act_quant": act, "serve_embed": embed_run,
               "embed_act_agreement": embed_small, "serve_mamba": mamba,
               "mamba_agreement": mamba_small, "ssd_errors": ssd_errors,
-              "phase_seconds": phase_s}
+              "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],
+              "int32_ops_per_s": INT32_OPS, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,13 +3,17 @@ a fresh process on one NVIDIA card: ``chip_smoke.check_qmm`` run as is, its
 decode (M 4), prefill (M 112) and training (M 2048) lines printed; with
 ``--kernel qmm_t``, kernel B6's rows instead (``check_qmm_t`` and
 ``check_qmm_t_unembed``: every line), with ``--kernel qmv`` or ``--kernel
-ssd`` kernel B3's (``check_qmv``) or B12's (``check_ssd``), every line.
+ssd`` kernel B3's (``check_qmv``) or B12's (``check_ssd``), every line;
+with ``--kernel threefry``, ``ds_quant`` or ``quant_adamw`` the plane
+kernel's (``check_threefry``), B1's or B8/B9's rows (the keyed entries
+beside the rand ones), every line.
 With ``--warm`` the card first
 multiplies bf16 matrices for that many seconds. To compare a change with
 its parent on one card, unpack both checkouts and run them interleaved in
 one call (parent, change, change, parent):
 
-  python scripts/qmm_rows_timing.py ROOT [--warm SECONDS] [--kernel qmm|qmm_t|qmv|ssd]
+  python scripts/qmm_rows_timing.py ROOT [--warm SECONDS]
+      [--kernel qmm|qmm_t|qmv|ssd|threefry|ds_quant|quant_adamw]
 
 ROOT is the checkout whose ``chip_smoke.py`` and ``src/`` are imported.
 """
@@ -27,7 +31,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("root")
     ap.add_argument("--warm", type=float, default=0.0)
-    ap.add_argument("--kernel", choices=("qmm", "qmm_t", "qmv", "ssd"), default="qmm")
+    ap.add_argument("--kernel", choices=("qmm", "qmm_t", "qmv", "ssd", "threefry", "ds_quant",
+                                         "quant_adamw"), default="qmm")
     args = ap.parse_args()
     sys.path[:0] = [args.root, args.root + "/src"]
     import torch
@@ -38,6 +43,8 @@ def main():
     from repro_torch.kernels import _build
 
     _build.load(args.kernel)
+    if hasattr(chip_smoke, "_int32_rate"):      # the int32 bound of the hashing rows
+        chip_smoke.INT32_OPS = chip_smoke._int32_rate()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if args.warm > 0:

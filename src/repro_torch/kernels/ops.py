@@ -111,8 +111,13 @@ def ds_quantize(x: torch.Tensor, s: int, key: torch.Tensor,
                 scale: torch.Tensor | None = None):
     """Fused double-sampling quantization: both Q₁/Q₂ int8 code planes from
     one pass over x (paper §2.2 — shared base + 1 extra bit), the rounding
-    bits one ``jax.random.bits(key, x.shape, uint32)``-exact plane made on
-    x's device.
+    bits those of ``jax.random.bits(key, x.shape, uint32)``, bit for bit.
+    On the card that is one launch of ``ds_quant``'s keyed entry, which
+    hashes each element's word in registers (73 32-bit integer operations,
+    41 of them shifts and xors, ``csrc/threefry.cuh``) and moves 6 bytes
+    per f32 element (x, two code planes) where the plane and the rand entry
+    moved 14 (the plane written, then x, rand and the codes); on the CPU
+    the plane is drawn and the plain version run.
 
     ``scale=None`` takes per-row absmax scales (R, 1) from ``row_absmax``; a
     ``(R, 1)`` scale selects row scaling; anything else (a scalar, (C,),
@@ -129,8 +134,7 @@ def ds_quantize(x: torch.Tensor, s: int, key: torch.Tensor,
     else:
         scale = scale.reshape(1, -1).expand(1, c)
         axis = "col"
-    rand = prng.bits(key, x.shape, device=x.device).to(torch.int32)
-    c1, c2 = sq_mod.ds_quant(x, rand, scale, s=s, scale_axis=axis)
+    c1, c2 = sq_mod.ds_quant_keyed(x, key, scale, s=s, scale_axis=axis)
     return c1, c2, scale
 
 
@@ -154,8 +158,8 @@ def ds_gradient_from_codes(codes1, codes2, x, b, scale, s: int) -> torch.Tensor:
     return g * m / (2.0 * B * s)
 
 
-def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand, *,
-                       qmax: int, b1: float, b2: float, eps: float, wd: float,
+def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand=None, *,
+                       key=None, qmax: int, b1: float, b2: float, eps: float, wd: float,
                        lr, b1c, b2c, clip, finite, uclip: float = 0.0):
     """Fused quantized-moment AdamW leaf update through the two kernels:
     pass 1 reduces the new-moment column absmaxes per row block, the host
@@ -164,7 +168,10 @@ def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand, *,
     reach device memory.
 
     master/g (R, C) f32; codes (R, C) int8; scales (C,) f32; rand (R, C)
-    int32 (uint32 words: hi/lo 16 bits drive the m and √v draws);
+    int32 (uint32 words: hi/lo 16 bits drive the m and √v draws) or, in
+    its place, ``key``: pass 2 then hashes the words of ``prng.bits(key,
+    (R, C))`` in registers (the keyed entry, 16 bytes an element where the
+    plane and the rand entry move 24);
     lr/b1c/b2c/clip/finite are step scalars (Python floats or 0-d tensors,
     the latter may live on the device). Returns
     (new_master, m_codes, m_scale_new, v_codes, v_scale_new), (C,) scales."""
@@ -179,8 +186,8 @@ def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand, *,
     msn = ref.adamw_scale_ref(torch.amax(mx, dim=0), qmax)
     vsn = ref.adamw_scale_ref(torch.amax(vx, dim=0), qmax)
     nm, mc, vc = qa_mod.qadamw_update(master, g, m_codes, m_scale, v_codes, v_scale,
-                                      msn, vsn, rand, params, b1=b1, b2=b2, eps=eps,
-                                      wd=wd, qmax=qmax, uclip=uclip)
+                                      msn, vsn, rand, params, key=key, b1=b1, b2=b2,
+                                      eps=eps, wd=wd, qmax=qmax, uclip=uclip)
     return nm, mc, msn, vc, vsn
 
 

@@ -5,7 +5,11 @@ update (port of ``repro.kernels.quant_adamw``; the CUDA source is
 * :func:`qadamw_absmax` (pass 1) — per block of :data:`ROWS_PER_BLOCK`
   rows, the column absmaxes of the new m and √v;
 * :func:`qadamw_update` (pass 2) — the new f32 master and both int8 moment
-  code planes, re-encoded stochastically against the new scales.
+  code planes, re-encoded stochastically against the new scales, the
+  rounding words read from a ``rand`` plane (the parity entry) or, given a
+  ``key``, hashed in the kernel's registers as ``prng.bits(key, (R, C))``
+  holds them (the keyed entry: no plane; bit-equal to the parity entry on
+  that plane).
 
 The step's traced scalars arrive as one (8,) f32 ``params`` tensor on the
 leaf's device — [clip, finite, lr, b1c, b2c, 0, 0, 0], the Pallas kernels'
@@ -21,12 +25,16 @@ import ctypes
 
 import torch
 
+from repro_torch import prng
+
 from . import _build
 from .ref import adamw_moments_ref, adamw_update_ref
 
 absmax_launches = 0   # kernel launches made by qadamw_absmax() (plain calls excluded)
-update_launches = 0   # kernel launches made by qadamw_update() (plain calls excluded)
-shape_launches: collections.Counter = collections.Counter()  # (pass, R, C) → launches
+update_launches = 0   # qadamw_update() launches of the rand entry (plain calls excluded)
+keyed_update_launches = 0   # qadamw_update() launches of the keyed entry
+# (pass, R, C) → launches; pass "absmax", "update" or "update_keyed"
+shape_launches: collections.Counter = collections.Counter()
 ROWS_PER_BLOCK = 256  # rows per pass-1 partial absmax (kRowsPerBlock in the source)
 P_CLIP, P_FINITE, P_LR, P_B1C, P_B2C = range(5)
 
@@ -62,10 +70,14 @@ def _lib():
     lib = _build.load("quant_adamw")
     if not getattr(lib, "_typed", False):
         p, ll, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+        i, u = ctypes.c_int, ctypes.c_uint
         lib.qadamw_absmax_launch.argtypes = [p] * 8 + [ll, ll] + [f] * 4 + [p]
         lib.qadamw_absmax_launch.restype = ctypes.c_int
-        lib.qadamw_update_launch.argtypes = [p] * 13 + [ll, ll] + [f] * 8 + [p]
-        lib.qadamw_update_launch.restype = ctypes.c_int
+        lib.qadamw_update_launch.argtypes = [p] * 13 + [ll, ll] + [f] * 8 + [i, p]
+        lib.qadamw_update_launch.restype = i
+        lib.qadamw_update_keyed_launch.argtypes = ([p] * 8 + [u, u] + [p] * 4 + [ll, ll]
+                                                   + [f] * 8 + [i, p])
+        lib.qadamw_update_keyed_launch.restype = i
         lib.quant_adamw_error_string.argtypes = [ctypes.c_int]
         lib.quant_adamw_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -126,38 +138,64 @@ def qadamw_absmax(g, m_codes, m_scale, v_codes, v_scale, params, *,
     return mx, vx
 
 
+def _vec_ok(c, planes, scales, codes) -> bool:
+    """Whether pass 2 may take four elements a thread: C % 4 == 0, every
+    f32 plane and scale 16-byte aligned, the code planes 4-byte aligned."""
+    return (c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (*planes, *scales))
+            and all(t.data_ptr() % 4 == 0 for t in codes))
+
+
 def qadamw_update(master, g, m_codes, m_scale, v_codes, v_scale, m_scale_new,
-                  v_scale_new, rand, params, *, b1: float, b2: float, eps: float,
-                  wd: float, qmax: int, uclip: float = 0.0):
+                  v_scale_new, rand, params, *, key=None, b1: float, b2: float,
+                  eps: float, wd: float, qmax: int, uclip: float = 0.0):
     """master/g (R, C) f32; codes (R, C) int8; old and new scales (C,) f32;
-    rand (R, C) int32 holding uint32 words; params (8,) f32. Returns
-    (new_master f32, new_m_codes int8, new_v_codes int8)."""
-    global update_launches
+    params (8,) f32; and exactly one of ``rand`` (R, C) int32 holding uint32
+    words, or ``key``, one (2,) threefry key whose ``prng.bits(key, (R,
+    C))`` words the kernel hashes itself. Returns (new_master f32,
+    new_m_codes int8, new_v_codes int8)."""
+    global update_launches, keyed_update_launches
+    if (rand is None) == (key is None):
+        raise ValueError("qadamw_update: pass exactly one of rand and key")
+    r, c = g.shape
+    if key is not None and (tuple(key.shape) != (2,) or key.dtype.is_floating_point):
+        raise ValueError(f"qadamw_update: key must be one (2,) integer key, got "
+                         f"{key.dtype}{list(key.shape)}")
     if not g.is_cuda:
+        if rand is None:
+            rand = prng.bits(key, (r, c), device=g.device, dtype=torch.int32)
         return qadamw_update_plain(master, g, m_codes, m_scale, v_codes, v_scale,
                                    m_scale_new, v_scale_new, rand, params, b1=b1,
                                    b2=b2, eps=eps, wd=wd, qmax=qmax, uclip=uclip)
     _check("qadamw_update", g, m_codes, m_scale, v_codes, v_scale, params, master)
-    r, c = g.shape
-    if rand.dtype != torch.int32 or tuple(rand.shape) != (r, c) or not rand.is_cuda:
+    if rand is not None and (rand.dtype != torch.int32 or tuple(rand.shape) != (r, c)
+                             or not rand.is_cuda):
         raise ValueError("qadamw_update: rand must be an (R, C) int32 plane on the card")
     for t in (m_scale_new, v_scale_new):
         if t.numel() != c or not t.is_cuda:
             raise ValueError(f"qadamw_update: a new scale needs {c} entries on the card")
-    master, g, rand = master.contiguous(), g.contiguous(), rand.contiguous()
+    master, g = master.contiguous(), g.contiguous()
     m_codes, v_codes = m_codes.contiguous(), v_codes.contiguous()
     ms, vs, msn, vsn = (_f32(t) for t in (m_scale, v_scale, m_scale_new, v_scale_new))
     out_master = torch.empty_like(master)
     out_mc = torch.empty_like(m_codes)
     out_vc = torch.empty_like(v_codes)
+    planes = [master, g, out_master] + ([] if rand is None else [rand.contiguous()])
+    vec = int(_vec_ok(c, planes, (ms, vs, msn, vsn), (m_codes, v_codes, out_mc, out_vc)))
+    head = (master.data_ptr(), g.data_ptr(), m_codes.data_ptr(), ms.data_ptr(),
+            v_codes.data_ptr(), vs.data_ptr(), msn.data_ptr(), vsn.data_ptr())
+    tail = (params.data_ptr(), out_master.data_ptr(), out_mc.data_ptr(), out_vc.data_ptr(),
+            r, c, b1, 1 - b1, b2, 1 - b2, eps, wd, float(qmax), uclip, vec,
+            torch.cuda.current_stream(g.device).cuda_stream)
     lib = _lib()
-    err = lib.qadamw_update_launch(
-        master.data_ptr(), g.data_ptr(), m_codes.data_ptr(), ms.data_ptr(),
-        v_codes.data_ptr(), vs.data_ptr(), msn.data_ptr(), vsn.data_ptr(),
-        rand.data_ptr(), params.data_ptr(), out_master.data_ptr(), out_mc.data_ptr(),
-        out_vc.data_ptr(), r, c, b1, 1 - b1, b2, 1 - b2, eps, wd, float(qmax),
-        uclip, torch.cuda.current_stream(g.device).cuda_stream)
-    _raise_on(lib, err, "qadamw_update")
-    update_launches += 1
-    shape_launches[("update", r, c)] += 1
+    if rand is None:
+        k1, k2 = int(key[0]) & prng.MASK, int(key[1]) & prng.MASK
+        err = lib.qadamw_update_keyed_launch(*head, k1, k2, *tail)
+        _raise_on(lib, err, "qadamw_update")
+        keyed_update_launches += 1
+        shape_launches[("update_keyed", r, c)] += 1
+    else:
+        err = lib.qadamw_update_launch(*head, planes[3].data_ptr(), *tail)
+        _raise_on(lib, err, "qadamw_update")
+        update_launches += 1
+        shape_launches[("update", r, c)] += 1
     return out_master, out_mc, out_vc

@@ -378,10 +378,13 @@ class _CudaBackend(KernelBackend):
                            uclip: float = 0.0):
         """The two-pass fused update (``qadamw_absmax`` + ``qadamw_update``)
         for 2-D+ leaves, flattened to (rows, last dim); the rounding bits
-        are one ``jax.random.bits(km, shape)``-exact uint32 plane whose high
-        and low 16 bits feed the m and √v draws (the reference's ``pallas``
-        backend draw; ``kv`` is unused there). Vectors and scalars take the
-        plain path, as in the reference."""
+        are those of one ``jax.random.bits(km, shape)``-exact uint32 plane
+        whose high and low 16 bits feed the m and √v draws (the reference's
+        ``pallas`` backend draw; ``kv`` is unused there). On the card pass 2
+        takes ``km`` and hashes those words in registers (the flat index of
+        the (rows, last dim) view is the leaf's); on the CPU the plane is
+        drawn. Vectors and scalars take the plain path, as in the
+        reference."""
         if p_master.ndim < 2 or bits > 8 or km is None:
             return KernelBackend.quant_adamw_update(
                 self, p_master, g, m_old, v_old, km, kv, bits=bits, b1=b1,
@@ -395,12 +398,13 @@ class _CudaBackend(KernelBackend):
 
         shape = p_master.shape
         c = shape[-1]
-        rand = prng.bits(km, shape, device=p_master.device,
-                         dtype=torch.int32).reshape(-1, c)
+        rand = None if p_master.is_cuda else prng.bits(
+            km, shape, device=p_master.device, dtype=torch.int32).reshape(-1, c)
         nm, mc, msn, vc, vsn = ops.quant_adamw_update(
             p_master.reshape(-1, c), g.reshape(-1, c),
             m_old.codes.reshape(-1, c), m_old.scale,
             v_old.codes.reshape(-1, c), v_old.scale, rand,
+            key=km if rand is None else None,
             qmax=2 ** (bits - 1) - 1, b1=b1, b2=b2, eps=eps, wd=wd,
             uclip=uclip, lr=lr, b1c=b1c, b2c=b2c, clip=clip,
             finite=finite.to(torch.float32))

@@ -34,9 +34,13 @@ bf16 against its plain version, the reference's tolerances for its Pallas
 kernel (f32 sums in another order; at bf16 y rounds once more), its state
 1e-4 at both (bf16 x, B and C are exact operands of the tensor cores, and
 their f32 operands split exactly into three bf16 pieces), the same against
-the tensor cores' order in torch, and two calls bit-equal; and the
+the tensor cores' order in torch, and two calls bit-equal; the
 reduced mamba2-780m served on the card against the CPU's plain path:
-greedy tokens equal.
+greedy tokens equal; and the threefry plane kernel bit-exact against
+``prng``'s int64 path (int32, int64 and f32 output, one key and batched
+keys, ragged n, a counter window across 2³²), and the keyed entries of
+``ds_quant`` and ``qadamw_update`` bit-equal to their rand entries on the
+same key's ``prng.bits`` plane (they share the hash and the body).
 """
 import numpy as np
 import pytest
@@ -54,6 +58,7 @@ from repro_torch.kernels import quant_adamw as tqa
 from repro_torch.kernels import qmv as tqmv
 from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels import stoch_quant as tsq
+from repro_torch.kernels import threefry as ttf
 from repro_torch.serve import pages as tpg
 from repro_torch.quant.qtensor import unpack_int4
 
@@ -452,13 +457,17 @@ def test_quantize_rows_and_ds_quantize_launch_counts(cuda):
     x = torch.randn(16, 5000, device=cuda)
     key = prng.PRNGKey(4)
     tsq.reset_counts()
+    ttf.reset_counts()
     codes, scale = tops.quantize_rows(x, 15, key)
     c1, c2, sc = tops.ds_quantize(x, 15, key)
     torch.cuda.synchronize()
-    assert (tsq.row_absmax_launches, tsq.stoch_quant_launches, tsq.launches) == (2, 1, 1)
+    assert (tsq.row_absmax_launches, tsq.stoch_quant_launches, tsq.launches,
+            tsq.keyed_launches) == (2, 1, 0, 1)
     assert tsq.shape_launches == {("row_absmax", 16, 5000): 2,
                                   ("stoch_quant", 16, 5000): 1,
-                                  ("ds_quant", 16, 5000): 1}
+                                  ("ds_quant_keyed", 16, 5000): 1}
+    # quantize_rows' plane is one threefry launch; ds_quantize draws none
+    assert ttf.shape_launches == {("int32", 1, 16 * 5000): 1}
     cpu_codes, cpu_scale = tops.quantize_rows(x.cpu(), 15, key)
     assert torch.equal(codes.cpu(), cpu_codes) and torch.equal(scale.cpu(), cpu_scale)
     cpu = tops.ds_quantize(x.cpu(), 15, key)
@@ -535,9 +544,10 @@ def test_train_linear_card_matches_cpu_plain_path(cuda):
 
     ds = make_dataset("synthetic100", n_train=256, n_test=64)
     plan = PrecisionPlan("e2e", sample_bits=6, model_bits=8, grad_bits=8)
-    before = (tsq.launches, tqmv.launches)
+    before = (tsq.keyed_launches, tqmv.launches, ttf.int64_cuda_planes)
     card = train_linear(ds, plan, model="lssvm", epochs=2, lr=0.3, device=cuda)
-    assert tsq.launches - before[0] == 32 and tqmv.launches - before[1] == 128
+    assert tsq.keyed_launches - before[0] == 32 and tqmv.launches - before[1] == 128
+    assert ttf.int64_cuda_planes == before[2]
     cpu = train_linear(ds, PrecisionPlan("e2e", sample_bits=6, model_bits=8, grad_bits=8,
                                          backend="cuda"),
                        model="lssvm", epochs=2, lr=0.3, device="cpu")
@@ -1088,3 +1098,195 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ------------------------------------------------ threefry, keyed B1 and B9 --
+
+# ragged n (no multiple of the kernel's 256 × 4 counters a block-turn), the
+# linear path's batch and yearprediction's, and a plane past one grid-stride
+TF_SHAPES = [(1,), (7,), (16, 90), (16, 5000), (1001,), (3, 333, 1027)]
+TF_WINDOWS = [(2 ** 32 - 5000, 10000), (2 ** 32 - 1, 3), (5 * 2 ** 32 + 77, 4099)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TF_SHAPES)
+@pytest.mark.parametrize("out", ["int32", "int64", "f32"])
+@pytest.mark.parametrize("seed", [0, 2 ** 31 + 3])
+def test_threefry_plane_kernel_bit_exact_one_key(cuda, shape, out, seed):
+    key = prng.PRNGKey(seed)
+    before = (ttf.launches, ttf.int64_cuda_planes)
+    got = ttf.threefry_plane(key, shape, out=out, device=cuda)
+    torch.cuda.synchronize()
+    assert (ttf.launches, ttf.int64_cuda_planes) == (before[0] + 1, before[1])
+    want = ttf.threefry_plane_plain(key, shape, out=out, device="cpu")
+    assert got.dtype == want.dtype and tuple(got.shape) == tuple(want.shape)
+    assert torch.equal(got.cpu(), want)
+    # prng's own entry points take the kernel on the card
+    if out == "f32":
+        assert torch.equal(prng.uniform(key, shape, device=cuda).cpu(), want)
+    else:
+        dtype = torch.int32 if out == "int32" else torch.int64
+        assert torch.equal(prng.bits(key, shape, device=cuda, dtype=dtype).cpu(), want)
+    assert ttf.int64_cuda_planes == before[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nkeys", [1, 3, 180, 5000])
+@pytest.mark.parametrize("shape", [(16,), (5, 3), (1001,)])
+@pytest.mark.parametrize("out", ["int32", "int64", "f32"])
+def test_threefry_plane_kernel_bit_exact_batched_keys(cuda, nkeys, shape, out):
+    keys = prng.split(prng.PRNGKey(nkeys), nkeys)
+    got = ttf.threefry_plane(keys, shape, out=out, device=cuda)
+    want = ttf.threefry_plane_plain(keys, shape, out=out, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    # keys already on the card, and a nested batch
+    nested = keys.reshape(1, nkeys, 2)
+    assert torch.equal(ttf.threefry_plane(nested.to(cuda), shape, out=out).cpu(),
+                       want.reshape(1, nkeys, *shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start,n", TF_WINDOWS)
+@pytest.mark.parametrize("out", ["int32", "int64", "f32"])
+def test_threefry_plane_kernel_window_across_2_32(cuda, start, n, out):
+    for key in (prng.PRNGKey(17), prng.split(prng.PRNGKey(18), 3)):
+        got = ttf.threefry_plane(key, (n,), out=out, start=start, device=cuda)
+        want = ttf.threefry_plane_plain(key, (n,), out=out, start=start, device="cpu")
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_randint_on_the_card_takes_the_plane_kernel(cuda):
+    key = prng.PRNGKey(12)
+    before = (ttf.launches, ttf.int64_cuda_planes)
+    got = prng.randint(key, (4, 1024), 0, 50280, device=cuda)
+    assert ttf.launches == before[0] + 2 and ttf.int64_cuda_planes == before[1]
+    assert torch.equal(got.cpu(), prng.randint(key, (4, 1024), 0, 50280))
+
+
+# chip_smoke.py · DS_CASES: every shape a path launches B1 at, and three more
+DS_KEYED_CASES = [(16, 5000, "col", 63), (6000, 5000, "row", 15), (16, 90, "col", 7),
+                  (1024, 2048, "col", 63), (1024, 2048, "row", 63), (13, 1001, "col", 63)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,c,axis,s", DS_KEYED_CASES)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_ds_quant_keyed_equals_rand_entry(cuda, r, c, axis, s, xdtype):
+    g = torch.Generator(device=cuda).manual_seed(r + c)
+    x = (torch.randn(r, c, generator=g, device=cuda) * 2).to(xdtype)
+    x[0, 0] = float("nan")
+    a = x.to(torch.float32).abs()
+    scale = a.nan_to_num().amax(1, keepdim=True) if axis == "row" else \
+        a.nan_to_num().amax(0, keepdim=True)
+    key = prng.PRNGKey(r * c + s)
+    before = (tsq.keyed_launches, ttf.launches)
+    got = tsq.ds_quant_keyed(x, key, scale, s=s, scale_axis=axis)
+    torch.cuda.synchronize()
+    assert (tsq.keyed_launches, ttf.launches) == (before[0] + 1, before[1])
+    rand = prng.bits(key, (r, c), device=cuda, dtype=torch.int32)
+    want = tsq.ds_quant(x, rand, scale, s=s, scale_axis=axis)
+    plain = tsq.ds_quant_plain(x, rand, scale, s=s)
+    for k_, w, p_ in zip(got, want, plain):
+        assert torch.equal(k_, w) and torch.equal(k_, p_)
+
+
+# the leaf kinds of full-width gemma-2b, rows cut (up/gate C 16384, q/o and
+# down and the table C 2048, k/v C 256, the norms' 18 rows), on the
+# four-elements-a-thread path; C 130 and (1, 7) on the element-at-a-time one
+ADAMW_KEYED_SHAPES = [(64, 16384), (96, 2048), (257, 256), (18, 2048), (257, 130),
+                      (1, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ADAMW_KEYED_SHAPES)
+@pytest.mark.parametrize("finite", [1.0, 0.0])
+def test_quant_adamw_keyed_equals_rand_entry(cuda, shape, finite):
+    args = _adamw_leaf(*shape, seed=shape[1], device=cuda)
+    kw = dict(OPK, finite=finite)
+    key = prng.fold_in(prng.PRNGKey(5), shape[0])
+    rand = prng.bits(key, shape, device=cuda, dtype=torch.int32)
+    before = (tqa.keyed_update_launches, tqa.update_launches)
+    got = tops.quant_adamw_update(*args[:6], key=key, **kw)
+    torch.cuda.synchronize()
+    assert (tqa.keyed_update_launches, tqa.update_launches) == (before[0] + 1, before[1])
+    want = tops.quant_adamw_update(*args[:6], rand, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # and within the reference's contract of the plain version on the CPU
+    plain = tops.quant_adamw_update(*(a.cpu() for a in args[:6]), rand.cpu(), **kw)
+    nm, mc, ms, vc, vs = [x.cpu() for x in got]
+    torch.testing.assert_close(nm, plain[0], rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(ms, plain[2], rtol=1e-6, atol=0)
+    torch.testing.assert_close(vs, plain[4], rtol=1e-6, atol=0)
+    for a, b in ((mc, plain[1]), (vc, plain[3])):
+        assert (a == b).float().mean().item() >= 0.999
+        assert (a.int() - b.int()).abs().max().item() <= 1
+
+
+# zeros where pass 2 divides and takes square roots (a training step's
+# moments and gradients are mostly 0): g and both codes 0 on every other
+# element and in one whole column (its new scales 1), -0.0 gradients and
+# masters; the four-elements-a-thread body (C 2048) and the
+# element-at-a-time one (C 130)
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(96, 2048), (257, 130)])
+def test_quant_adamw_zero_operands_match_plain(cuda, shape):
+    master, g, mc, ms, vc, vs, _ = _adamw_leaf(*shape, seed=11, device=cuda)
+    for t in (g, mc, vc):
+        t.view(-1)[::2] = 0
+        t[:, 3] = 0
+    g.view(-1)[1::8] = -0.0
+    master.view(-1)[::16] = -0.0
+    key = prng.PRNGKey(12)
+    rand = prng.bits(key, shape, device=cuda, dtype=torch.int32)
+    got = tops.quant_adamw_update(master, g, mc, ms, vc, vs, key=key, **OPK)
+    on_plane = tops.quant_adamw_update(master, g, mc, ms, vc, vs, rand, **OPK)
+    torch.cuda.synchronize()
+    for a, b in zip(got, on_plane):
+        assert torch.equal(a, b)
+    plain = tops.quant_adamw_update(*(a.cpu() for a in (master, g, mc, ms, vc, vs, rand)),
+                                    **OPK)
+    nm, mcn, msn, vcn, vsn = [x.cpu() for x in got]
+    assert msn[3] == 1 and vsn[3] == 1
+    torch.testing.assert_close(nm, plain[0], rtol=2e-6, atol=2e-6)
+    for a, b in ((mcn, plain[1]), (vcn, plain[3])):
+        assert (a == b).float().mean().item() >= 0.999
+    # where both moments are 0 every division and root saw a zero: the
+    # masters bit for bit (signed zeros included) and codes 0
+    zero = ((g == 0) & (mc == 0) & (vc == 0)).cpu()
+    assert zero.float().mean().item() > 0.5
+    assert torch.equal(nm[zero].view(torch.int32), plain[0][zero].view(torch.int32))
+    assert not mcn[zero].any() and not vcn[zero].any()
+
+
+@pytest.mark.gpu
+def test_quant_adamw_keyed_registry_leaf_3d(cuda):
+    """The registry's cuda backend passes km on the card: a stacked 3-D
+    leaf's update equals the one from the leaf's own bits(km, shape) plane."""
+    from repro_torch.kernels import registry as treg
+    from repro_torch.optim.adamw import moment_scheme
+    from repro_torch.quant import QTensor
+
+    shape = (3, 64, 2048)
+    master, g, mc, ms, vc, vs, _ = _adamw_leaf(3 * 64, 2048, seed=9, device=cuda)
+    sch = moment_scheme(8, 3)
+    km, kv = prng.split(prng.PRNGKey(31))
+    kw = dict(bits=8, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, uclip=10.0,
+              b1c=torch.tensor(0.1, device=cuda), b2c=torch.tensor(0.05, device=cuda),
+              lr=torch.tensor(1e-3, device=cuda), clip=torch.tensor(1.0, device=cuda),
+              finite=torch.tensor(True, device=cuda))
+    before = (tqa.keyed_update_launches, tqa.update_launches, ttf.launches)
+    nm, mq, vq = treg.get("cuda").quant_adamw_update(
+        master.reshape(shape), g.reshape(shape), QTensor(mc.reshape(shape), ms, sch),
+        QTensor(vc.reshape(shape), vs, sch), km, kv, **kw)
+    torch.cuda.synchronize()
+    assert (tqa.keyed_update_launches, tqa.update_launches, ttf.launches) == \
+        (before[0] + 1, before[1], before[2])
+    rand = prng.bits(km, shape, device=cuda, dtype=torch.int32).reshape(-1, 2048)
+    want = tops.quant_adamw_update(master, g, mc, ms, vc, vs, rand, qmax=127, b1=0.9,
+                                   b2=0.95, eps=1e-8, wd=0.1, uclip=10.0, lr=1e-3,
+                                   b1c=0.1, b2c=0.05, clip=1.0, finite=1.0)
+    assert torch.equal(nm.reshape(-1, 2048), want[0])
+    assert torch.equal(mq.codes.reshape(-1, 2048), want[1])
+    assert torch.equal(vq.codes.reshape(-1, 2048), want[3])

@@ -74,6 +74,7 @@ from repro.train import step as jstep
 from repro.train.trainer import Trainer as JTrainer
 from repro_torch import configs as tconfigs
 from repro_torch import prng
+from repro_torch.kernels import threefry as ttf
 from repro_torch.data.pipeline import TokenStream as TStream
 from repro_torch.data.pipeline import TokenStreamConfig as TStreamCfg
 from repro_torch.interop import train_state_from_numpy
@@ -294,7 +295,7 @@ def test_big_planes_hash_in_chunks_bit_exact(monkeypatch):
     k = jax.random.PRNGKey(11)
     want_b = np.asarray(jax.random.bits(k, (37, 51), jnp.uint32))
     want_u = np.asarray(jax.random.uniform(k, (37, 51)))
-    monkeypatch.setattr(prng, "CHUNK", 100)
+    monkeypatch.setattr(ttf, "CHUNK", 100)
     tk = bridge_key(k)
     np.testing.assert_array_equal(prng.bits(tk, (37, 51)).numpy(), want_b)
     np.testing.assert_array_equal(
