@@ -24,7 +24,9 @@ NVIDIA card.
    the run fails if a launch of the paths has no row —
    ``row_absmax`` and ``stoch_quant`` (bit-exact, s 3/15/127, f32 and bf16,
    a NaN row for ``row_absmax``) at gisette's whole sample matrix (6000 ×
-   5000), the linear path's batch (16 × 5000) and a ragged (13, 1001) — and
+   5000), the linear path's batch (16 × 5000) and a ragged (13, 1001), and
+   ``row_absmax`` also at both path shapes in bf16 and as views 4 bytes
+   into their storage, its path rows beside an earlier run's time — and
    times the kernel, the plain version and, where one exists, a PyTorch
    library yardstick beside the card's bound; ``[quantize-rows]`` then runs
    ``ops.quantize_rows`` and ``ops.ds_quantize(scale=None)`` on gisette's
@@ -58,12 +60,17 @@ NVIDIA card.
 5. slice 3 — checks ``qmm_t`` (rel 1e-5, on the tensor-core core that
    ``qmm_t.plan`` gives M 2048; the bound is the same work at the bf16
    rate, the kernel's own floor three times that) and both ``quant_adamw``
-   passes (the reference's contract) at the training path's shapes, then trains
+   passes (the reference's contract; pass 1's path entry ``qadamw_scales``
+   bit-equal to its plain version and to the max of the parity entry's
+   partials, NaN kept) at the training path's shapes, then trains
    full-width gemma-2b through ``repro_torch.launch.train.make_trainer`` +
    ``Trainer.run``: batch 4 × 512 tokens, 5 steps, ship-quantized int8
    weights, int8 gradients with error feedback, int8 AdamW moments, with the
-   ``qmm``, ``qmm_t``, ``qadamw_absmax`` and ``qadamw_update`` counters set
-   to 0 just before and read just after; checks finite losses, no skipped
+   ``qmm``, ``qmm_t``, ``qadamw_scales``, ``qadamw_absmax`` and
+   ``qadamw_update`` counters set to 0 just before and read just after (the
+   parity entries of both passes must stay at 0, pass 1 launch once a 2-D
+   leaf, and the profile must see no device op between pass 1 and pass 2
+   of a leaf); checks finite losses, no skipped
    step, a last loss below the first and every ``qmm_t`` launch on the
    tensor cores; profiles 2 more steps (a kernel group that launched but
    reads no device time fails: a renamed kernel); runs the
@@ -245,8 +252,15 @@ QMM_T_SHAPES = [(2048, 2048, 2048), (2048, 2048, 256), (2048, 2048, 16384),
 # last dim): up/gate, embed.table, k/v, ln1/ln2, q/o, down
 ADAMW_SHAPES = [(36864, 16384), (256000, 2048), (36864, 256), (18, 2048),
                 (36864, 2048), (294912, 2048)]
+ADAMW_NAN_SHAPE = (36864, 256)  # ... where a NaN in g is checked (k/v)
 ADAMW_KW = dict(qmax=127, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, lr=1e-4, b1c=0.1,
                 b2c=0.05, clip=0.5, finite=1.0, uclip=10.0)
+# pass 1's ms at each leaf before its redesign (the parity entry, whose
+# partials the host reduced in ten more ops): chip_smoke.py on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md's kernel table before the path entry);
+# printed beside the path entry's rows, used in no check
+ADAMW_PASS1_BEFORE_MS = {(36864, 16384): 1.5004, (256000, 2048): 1.3264, (36864, 256): 0.1524,
+                         (18, 2048): 0.0147, (36864, 2048): 0.2999, (294912, 2048): 1.5069}
 # the training path: full-width gemma-2b, all three ZipML channels at 8 bits.
 # lr 1e-5 (warmup 1 step, cosine over 5): Adam's first steps move every weight
 # by ~lr whatever its gradient, and at this width 1e-4 and 3e-5 overshoot
@@ -285,6 +299,9 @@ SQ_CASES = [(6000, 5000), (16, 5000), (13, 1001)]
 SQ_S = (3, 15, 127)
 SQ_PATH_S = 15                # [quantize-rows]: 4-bit codes, s = 2^4 − 1
 SQ_DRAWS = 32                 # unbiasedness: mean of 32 draws at (16, 5000)
+# row_absmax's ms on [quantize-rows]' shapes in an earlier run of the same
+# kernel (PERF.md's table); printed beside its rows, used in no check
+ROW_ABSMAX_BEFORE_MS = {(6000, 5000): 0.0542, (16, 5000): 0.0077}
 SQ_SE = 5.0                   # ... within 5 standard errors of x
 # Fig. 9 as benchmarks/bench_chebyshev.py runs it at full size: cod-rna
 # (make_dataset's preset: 20000 × 8 training rows whatever n_train asks,
@@ -1308,12 +1325,18 @@ def check_qmm_t(dev, flush):
 def check_quant_adamw(dev, flush):
     """Both passes of ``quant_adamw`` against ``quant_adamw_ref`` (the
     reference's contract: masters rtol 2e-6 / atol 2e-6, scales rtol 1e-6,
-    ≥ 99.9 % of codes equal) at every leaf shape of the training path, and
-    pass 2's keyed entry bit-equal (masters and codes) to its rand entry on
-    the key's ``prng.bits`` plane; each pass timed against its plain version
+    ≥ 99.9 % of codes equal) at every leaf shape of the training path;
+    pass 1's path entry (``qadamw_scales``) bit-equal to its plain version
+    and to the scales of the max of the parity entry's partials, and both
+    entries NaN in a column whose g holds a NaN (at ``ADAMW_NAN_SHAPE``); pass 2's
+    keyed entry bit-equal (masters and codes) to its rand entry on the
+    key's ``prng.bits`` plane. Each entry timed against its plain version
     and its bound (pass 1 reads 6 bytes per element, pass 2 moves 20, keyed
     16 and the hash's int32 operations; its plain version draws the plane by
-    the int64 path; no PyTorch call computes the same function)."""
+    the int64 path; no PyTorch call computes the same function); the path
+    entry also beside the parity entry with the host's reduction after it
+    (the design before the path entry) and pass 1's time before its
+    redesign."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import ops, ref
@@ -1346,6 +1369,45 @@ def check_quant_adamw(dev, flush):
         params = torch.tensor([ADAMW_KW["clip"], ADAMW_KW["finite"], ADAMW_KW["lr"],
                                ADAMW_KW["b1c"], ADAMW_KW["b2c"], 0, 0, 0],
                               dtype=torch.float32, device=dev)
+        p1 = (g, mc, ms, vc, vs, params)
+        qm = ADAMW_KW["qmax"]
+
+        def parity_then_host():
+            mx, vx = QA.qadamw_absmax(*p1, **kw)
+            return (ref.adamw_scale_ref(torch.amax(mx, dim=0), qm),
+                    ref.adamw_scale_ref(torch.amax(vx, dim=0), qm))
+
+        for gg in ((g,) if (r, c) != ADAMW_NAN_SHAPE else (g, g.clone())):
+            if gg is not g:                       # the NaN row: column c // 3
+                gg[r // 2, c // 3] = float("nan")
+            q1 = (gg, *p1[1:])
+            scales = QA.qadamw_scales(*q1, **kw, qmax=qm)
+            plain = QA.qadamw_scales_plain(*q1, **kw, qmax=qm)
+            mx, vx = QA.qadamw_absmax(*q1, **kw)
+            torch.cuda.synchronize()
+            of_partials = (ref.adamw_scale_ref(torch.amax(mx, dim=0), qm),
+                           ref.adamw_scale_ref(torch.amax(vx, dim=0), qm))
+            nan_cols = {c // 3} if gg is not g else set()
+            for a, b, t in zip(scales, plain, of_partials):
+                nan = torch.isnan(b)
+                if set(torch.nonzero(nan).flatten().tolist()) != nan_cols or \
+                        not torch.equal(torch.isnan(a), nan) or \
+                        not torch.equal(torch.isnan(t), nan) or \
+                        not torch.equal(a[~nan], b[~nan]) or not torch.equal(t[~nan], b[~nan]):
+                    raise AssertionError(
+                        f"qadamw_scales ({r},{c}){' NaN g' if nan_cols else ''}: not "
+                        "bit-equal to its plain version and the max of the parity entry's "
+                        f"partials, or NaN columns {set(torch.nonzero(torch.isnan(a)).flatten().tolist())} "
+                        f"against {nan_cols}")
+            if nan_cols:
+                print(f"[kernel] quant_adamw qadamw_scales (R,C)=({r},{c}) NaN g at "
+                      f"({r // 2},{c // 3}): both entries and the plain version NaN in that "
+                      "column alone", flush=True)
+            del scales, plain, mx, vx, of_partials
+        if not all(torch.equal(x, y) for x, y in zip((msn, vsn), QA.qadamw_scales(
+                *p1, **kw, qmax=qm))):
+            raise AssertionError(f"quant_adamw ({r},{c}): the update's scales are not "
+                                 "qadamw_scales'")
         ukw = dict(kw, eps=ADAMW_KW["eps"], wd=ADAMW_KW["wd"], qmax=127,
                    uclip=ADAMW_KW["uclip"])
         upd_args = (master, g, mc, ms, vc, vs, msn, vsn)
@@ -1358,11 +1420,13 @@ def check_quant_adamw(dev, flush):
             raise AssertionError(f"quant_adamw ({r},{c}): the keyed entry is not bit-equal "
                                  "to the rand entry on the key's plane")
         del keyed, on_plane
+        p1_bytes = 6 * r * c + 8 * c
         for name, fn, plain, nbytes, ops_per_elem, more in (
-                ("qadamw_absmax",
-                 lambda: QA.qadamw_absmax(g, mc, ms, vc, vs, params, **kw),
-                 lambda: QA.qadamw_absmax_plain(g, mc, ms, vc, vs, params, **kw),
-                 6 * r * c + 8 * c + 8 * -(-r // QA.ROWS_PER_BLOCK) * c, 15, []),
+                ("qadamw_scales", lambda: QA.qadamw_scales(*p1, **kw, qmax=qm),
+                 lambda: QA.qadamw_scales_plain(*p1, **kw, qmax=qm), p1_bytes + 8 * c, 15, []),
+                ("qadamw_absmax", lambda: QA.qadamw_absmax(*p1, **kw),
+                 lambda: QA.qadamw_absmax_plain(*p1, **kw),
+                 p1_bytes + 8 * -(-r // QA.ROWS_PER_BLOCK) * c, 15, []),
                 ("qadamw_update",
                  lambda: QA.qadamw_update(*upd_args, rand, params, **ukw),
                  lambda: QA.qadamw_update_plain(*upd_args, rand, params, **ukw),
@@ -1375,19 +1439,31 @@ def check_quant_adamw(dev, flush):
             k_ms = _timed(fn, flush, iters=10)
             plain_ms = _timed(plain, flush, iters=3)
             bound_ms, bound_by = _bound(nbytes, ops_per_elem * r * c, F32_FLOPS, *more)
-            label = {"qadamw_absmax": "pass 1", "qadamw_update": "pass 2",
-                     "qadamw_update_keyed": "pass 2 keyed"}[name]
-            rows.append({"name": f"quant_adamw {label} ({name}) R{r} C{c}",
-                         "key": (name, r, c), "max_abs_err": err, "ms": k_ms,
-                         "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-                         "bound_by": bound_by})
-            print(f"[kernel] quant_adamw {name} (R,C)=({r},{c}): masters max_err={err:.3e} "
-                  f"(rtol 2e-6), codes equal >= {same:.5f} kernel_ms={k_ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
-                  f"{nbytes} bytes at 3.35 TB/s"
-                  f"{f', {HASH_ALU_OPS} int32 shifts and xors an element' if more else ''})",
-                  flush=True)
-        del args, upd_args, master, g, mc, vc, rand, msn, vsn
+            label = {"qadamw_scales": "pass 1", "qadamw_absmax": "pass 1 partials",
+                     "qadamw_update": "pass 2", "qadamw_update_keyed": "pass 2 keyed"}[name]
+            row = {"name": f"quant_adamw {label} ({name}) R{r} C{c}", "key": (name, r, c),
+                   "max_abs_err": 0.0 if name == "qadamw_scales" else err, "ms": k_ms,
+                   "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            extra = ""
+            if name == "qadamw_scales":
+                p = QA.plan(r, c, QA._alignment(g, mc, vc))
+                row["parity_then_host_ms"] = _timed(parity_then_host, flush, iters=10)
+                row["before_ms"] = ADAMW_PASS1_BEFORE_MS.get((r, c))
+                extra = (f" bound/ms={bound_ms / k_ms:.3f}; parity entry + host reduction "
+                         f"{row['parity_then_host_ms']:.4f} ms; before its redesign "
+                         f"{row['before_ms']} ms; plan width {p.width} rows {p.rows} "
+                         f"tiles {p.tiles} runs {p.runs} ({p.tiles * p.runs} blocks)")
+            rows.append(row)
+            print(f"[kernel] quant_adamw {name} (R,C)=({r},{c}): "
+                  + ("scales bit-equal to the plain version and the partials' max"
+                     if name == "qadamw_scales" else
+                     f"masters max_err={err:.3e} (rtol 2e-6), codes equal >= {same:.5f}")
+                  + f" kernel_ms={k_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}, {nbytes} bytes at 3.35 TB/s"
+                  f"{f', {HASH_ALU_OPS} int32 shifts and xors an element' if more else ''})"
+                  + extra, flush=True)
+        del args, upd_args, master, g, mc, vc, rand, msn, vsn, p1
         torch.cuda.empty_cache()
     return rows
 
@@ -1402,13 +1478,13 @@ def _train_counters(reset: bool = False):
     if reset:
         Q.reset_counters()
         QT.reset_counters()
-        QA.absmax_launches = QA.update_launches = QA.keyed_update_launches = 0
+        QA.absmax_launches = QA.scales_launches = 0
+        QA.update_launches = QA.keyed_update_launches = 0
         QA.shape_launches.clear()
         TF.reset_counts()
-    return {"qmm": Q.launches, "qmm_t": QT.launches,
-            "qadamw_absmax": QA.absmax_launches,
+    return {"qmm": Q.launches, "qmm_t": QT.launches, "qadamw_scales": QA.scales_launches,
             "qadamw_update_keyed": QA.keyed_update_launches, "threefry": TF.launches,
-            "qadamw_update": QA.update_launches}
+            "qadamw_absmax": QA.absmax_launches, "qadamw_update": QA.update_launches}
 
 
 def train_full(dev, checked):
@@ -1480,12 +1556,21 @@ def train_full(dev, checked):
         del tr, state
         torch.cuda.empty_cache()
     all8, bf16 = runs["all8"], runs["bf16"]
-    zero = [k for k, v in all8["launches"].items() if v <= 0 and k != "qadamw_update"]
+    parity = ("qadamw_update", "qadamw_absmax")     # the parity entries: never on the path
+    zero = [k for k, v in all8["launches"].items() if v <= 0 and k not in parity]
     if zero:
         raise AssertionError(f"[train] kernels {zero} were not launched on the main path")
     if all8["launches"]["qadamw_update"]:
         raise AssertionError(f"[train] pass 2 took the rand entry (a moments plane) "
                              f"{all8['launches']['qadamw_update']} times, not the keyed one")
+    if all8["launches"]["qadamw_absmax"]:
+        raise AssertionError(f"[train] pass 1 took the parity entry (partials reduced on the "
+                             f"host) {all8['launches']['qadamw_absmax']} times, not "
+                             "qadamw_scales")
+    if all8["launches"]["qadamw_scales"] != all8["launches"]["qadamw_update_keyed"]:
+        raise AssertionError(f"[train] pass 1 launched {all8['launches']['qadamw_scales']} "
+                             f"times, pass 2 {all8['launches']['qadamw_update_keyed']}: one "
+                             "each a 2-D leaf")
     if any(bf16["launches"].values()):
         raise AssertionError(f"[train] the bf16 yardstick launched {bf16['launches']}")
     if not all8["losses"][-1] < all8["losses"][0]:
@@ -1549,9 +1634,16 @@ def profile_train(tr, state, steps: int = 2):
                              f"N) {split}: its splitk_reduce would count in qmm's group")
     launched = {"qmm": after["qmm"] - before["qmm"], "qmm_t": after["qmm_t"] - before["qmm_t"],
                 "quant_adamw": sum(after[k] - before[k] for k in
-                                   ("qadamw_absmax", "qadamw_update", "qadamw_update_keyed")),
+                                   ("qadamw_scales", "qadamw_absmax", "qadamw_update",
+                                    "qadamw_update_keyed")),
                 "threefry (plane kernel)": after["threefry"] - before["threefry"]}
+    between = _ops_between_passes(prof)
+    pass1_ms = sum(ms for k, ms in group_kernels["quant_adamw"].items() if "absmax_kernel" in k)
+    leaves = after["qadamw_scales"] - before["qadamw_scales"]
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps, "launches": launched,
+           "quant_adamw_pass1_ms_per_step": pass1_ms,
+           "device_ops_between_passes": {"leaves": len(between), "max": max(between, default=0),
+                                         "total": sum(between)},
            "device_events_per_step": n_events / steps,
            "device_ms_per_step": device_ms / steps if device_ms else None,
            "device_busy_share": device_ms / wall_ms if device_ms else None,
@@ -1566,6 +1658,13 @@ def profile_train(tr, state, steps: int = 2):
               f"busy {out['device_ms_per_step']:.1f} ms/step, busy share "
               f"{out['device_busy_share']:.3f}; share of device time " + ", ".join(
                   f"{k} {v:.3f}" for k, v in out["share_of_device_time"].items()), flush=True)
+        print(f"[train-profile] quant_adamw pass 1 (qadamw_scales) {pass1_ms:.3f} ms/step; "
+              f"device ops between pass 1 and pass 2 of a leaf: {sum(between)} over "
+              f"{len(between)} leaves (max {max(between, default=0)})", flush=True)
+        if len(between) != leaves or any(between):
+            raise AssertionError(f"[train-profile] {leaves} pass-1 launches, device ops "
+                                 f"between pass 1 and pass 2 of each leaf {between}: must "
+                                 "all be 0")
         print(f"[train-profile] ms per step by group {out['ms_per_step_by_group']}; int64 "
               f"kernels (none is threefry's unless TF.int64_cuda_planes > 0, which fails the "
               f"phase): {dict(group_kernels['threefry (int64 elementwise)']) or 'none'}",
@@ -1580,6 +1679,31 @@ def profile_train(tr, state, steps: int = 2):
     else:
         print("[train-profile] torch.profiler recorded no device time: not measured", flush=True)
     return out
+
+
+def _ops_between_passes(prof) -> list[int]:
+    """For each pass-1 launch in ``prof`` (a kernel named absmax_kernel),
+    the device events (kernels, memsets, copies) that start after it and
+    before the next pass-2 launch (update_kernel), in device time order."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    counts, open_ = [], None
+    for e in evs:
+        if "absmax_kernel" in e.name:
+            if open_ is not None:
+                counts.append(open_)
+            open_ = 0
+        elif "update_kernel" in e.name:
+            if open_ is not None:
+                counts.append(open_)
+            open_ = None
+        elif open_ is not None:
+            open_ += 1
+    if open_ is not None:
+        counts.append(open_)
+    return counts
 
 
 def _update_diff(got, before, after):
@@ -1666,9 +1790,11 @@ def agree_train(dev):
         per_step.append({"master_update_entries_off": n_off, "entries": n_all,
                          "worst_leaf_off": max(o for o, _ in off), "codes_equal": codes})
     card_n = {k: v - before[k] for k, v in _train_counters().items()}
-    # pass 2 takes its keyed entry on the card: the rand entry stays at 0
-    if (not all(v for k, v in card_n.items() if k != "qadamw_update")
-            or card_n["qadamw_update"] or any(cpu_n.values())):
+    # pass 1 takes its path entry and pass 2 its keyed entry on the card:
+    # the parity entries stay at 0
+    parity = ("qadamw_update", "qadamw_absmax")
+    if (not all(v for k, v in card_n.items() if k not in parity)
+            or any(card_n[k] for k in parity) or any(cpu_n.values())):
         raise AssertionError(f"[check] launches card {card_n}, CPU {cpu_n}")
     rel = np.abs(np.array(card_l) - cpu_l) / np.abs(cpu_l)
     print(f"[check] reduced gemma-2b f32 ship8/grad8/moment8, lr 1e-3, 3 steps: free run "
@@ -2131,47 +2257,55 @@ def _sq_role(r: int, c: int, on_path: bool) -> str:
 
 def check_row_absmax(dev, flush):
     """``row_absmax`` against its plain version, bit-exact (a max is exact in
-    any order), at ``SQ_CASES`` in f32 and at gisette's matrix in bf16, with
-    an all-zero row and a row holding one NaN (which must come out NaN);
-    timed beside the plain version, ``torch.linalg.vector_norm(x, inf)`` and
-    the bound (x read once, the maxima written once)."""
+    any order), at ``SQ_CASES`` in f32, at gisette's matrix and the batch in
+    bf16, and at both path shapes as a view 4 bytes into its storage (the
+    scalar head and tail), with an all-zero row and a row holding one NaN
+    (which must come out NaN); timed beside the plain version,
+    ``torch.linalg.vector_norm(x, inf)`` and the bound (x read once, the
+    maxima written once), the path shapes also beside an earlier run's
+    time."""
     import torch
     from repro_torch.kernels import stoch_quant as SQ
 
     rows = []
     gen = torch.Generator(device=dev).manual_seed(5)
-    for r, c, dt in [*[(r, c, torch.float32) for r, c in SQ_CASES],
-                     (*SQ_CASES[0], torch.bfloat16)]:
-        x = (torch.randn(r, c, generator=gen, device=dev) * 2).to(dt)
+    cases = [*[(r, c, torch.float32, 0) for r, c in SQ_CASES],
+             (*SQ_CASES[0], torch.bfloat16, 0), (*SQ_CASES[1], torch.bfloat16, 0),
+             (*SQ_CASES[0], torch.float32, 1), (*SQ_CASES[1], torch.float32, 1)]
+    for r, c, dt, offset in cases:
+        flat = (torch.randn(r * c + offset, generator=gen, device=dev) * 2).to(dt)
+        x = flat[offset:].view(r, c)
         x[0] = 0.0
         got = SQ.row_absmax(x)
         want = SQ.row_absmax_plain(x)
-        y = x.clone()
+        y = x.clone() if not offset else flat.clone()[offset:].view(r, c)
         y[r // 2, c // 2] = float("nan")
         got_nan = SQ.row_absmax(y)
         torch.cuda.synchronize()
         keep = torch.arange(r, device=dev) != r // 2
         if not torch.equal(got, want) or not bool(torch.isnan(got_nan[r // 2, 0])) \
                 or not torch.equal(got_nan[keep], want[keep]):
-            raise AssertionError(f"row_absmax ({r},{c}) {dt}: not bit-exact with the plain "
-                                 "version (or NaN dropped)")
+            raise AssertionError(f"row_absmax ({r},{c}) {dt} offset {offset}: not bit-exact "
+                                 "with the plain version (or NaN dropped)")
         ms = _timed(lambda: SQ.row_absmax(x), flush)
         plain_ms = _timed(lambda: SQ.row_absmax_plain(x), flush)
         lib_ms = _timed(lambda: torch.linalg.vector_norm(x, float("inf"), dim=1,
                                                          keepdim=True), flush)
         nbytes = r * c * x.element_size() + 4 * r
         bound_ms, bound_by = _bound(nbytes, 2 * r * c, F32_FLOPS)
-        dname = "f32" if dt == torch.float32 else "bf16"
-        role = _sq_role(r, c, dt == torch.float32 and (r, c) != (13, 1001))
+        dname = ("f32" if dt == torch.float32 else "bf16") + (" view+4B" if offset else "")
+        path = dt == torch.float32 and not offset and (r, c) != (13, 1001)
+        role = _sq_role(r, c, path)
+        before = ROW_ABSMAX_BEFORE_MS.get((r, c)) if path else None
         rows.append({"name": f"row_absmax {dname} R{r} C{c} ({role})",
-                     "key": (r, c) if dt == torch.float32 else None, "max_abs_err": 0.0,
+                     "key": (r, c) if path else None, "max_abs_err": 0.0,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+                     "bound_ms": bound_ms, "bound_by": bound_by, "before_ms": before})
         print(f"[kernel] row_absmax {dname} (R,C)=({r},{c}) ({role}): bit-exact, NaN kept; "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"(vector_norm inf) bound_ms={bound_ms:.5f} ({bound_by}, {nbytes} bytes)",
-              flush=True)
-        del x, y
+              f"(vector_norm inf) bound_ms={bound_ms:.5f} ({bound_by}, {nbytes} bytes) "
+              f"bound/ms={bound_ms / ms:.3f}; before {before} ms", flush=True)
+        del x, y, flat
     return rows
 
 
@@ -3669,7 +3803,7 @@ def main():
     for r in adamw_rows:
         name, rr, cc = r.pop("key")
         r["launches"] = all8["quant_adamw"].get((name[len("qadamw_"):], rr, cc), 0)
-        line = 138 if name == "qadamw_absmax" else 164
+        line = 164 if name.startswith("qadamw_update") else 138
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/quant_adamw.cu",
                         "replaces": f"src/repro/kernels/quant_adamw.py:{line}", **r})
@@ -3735,9 +3869,10 @@ def main():
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "core")
-    extra = {r["name"]: {k: r[k] for k in ("matmul_ms", "plain_code_share",
-                                           "exact_code_share")}
-             for r in kernels if "matmul_ms" in r}
+    extra_keys = ("matmul_ms", "plain_code_share", "exact_code_share", "before_ms",
+                  "parity_then_host_ms")
+    extra = {r["name"]: {k: r[k] for k in extra_keys if k in r}
+             for r in kernels if any(k in r for k in extra_keys)}
     kernels = [{k: r[k] for k in keys if k in r} for r in kernels]
 
     out_dir = ROOT / "build"
@@ -3750,7 +3885,7 @@ def main():
               "serve_bitplane": bitplane, "spec": spec, "bitplane_rows": qbp_same_rows,
               "bitplane_agreement": bitplane_small, "quantize_rows": qrows, "cheb": cheb,
               "optimal": optimal, "serve_optimal": serve_opt, "cheb_agreement": cheb_small,
-              "qmm_qout_extra": extra, "act_quant": act, "serve_embed": embed_run,
+              "kernel_extra": extra, "act_quant": act, "serve_embed": embed_run,
               "embed_act_agreement": embed_small, "serve_mamba": mamba,
               "mamba_agreement": mamba_small, "ssd_errors": ssd_errors,
               "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],

@@ -6,14 +6,15 @@ decode (M 4), prefill (M 112) and training (M 2048) lines printed; with
 ssd`` kernel B3's (``check_qmv``) or B12's (``check_ssd``), every line;
 with ``--kernel threefry``, ``ds_quant`` or ``quant_adamw`` the plane
 kernel's (``check_threefry``), B1's or B8/B9's rows (the keyed entries
-beside the rand ones), every line.
+beside the rand ones, pass 1's path entry beside its parity entry), with
+``--kernel row_absmax`` B2's, every line.
 With ``--warm`` the card first
 multiplies bf16 matrices for that many seconds. To compare a change with
 its parent on one card, unpack both checkouts and run them interleaved in
 one call (parent, change, change, parent):
 
   python scripts/qmm_rows_timing.py ROOT [--warm SECONDS]
-      [--kernel qmm|qmm_t|qmv|ssd|threefry|ds_quant|quant_adamw]
+      [--kernel qmm|qmm_t|qmv|ssd|threefry|ds_quant|quant_adamw|row_absmax]
 
 ROOT is the checkout whose ``chip_smoke.py`` and ``src/`` are imported.
 """
@@ -32,7 +33,7 @@ def main():
     ap.add_argument("root")
     ap.add_argument("--warm", type=float, default=0.0)
     ap.add_argument("--kernel", choices=("qmm", "qmm_t", "qmv", "ssd", "threefry", "ds_quant",
-                                         "quant_adamw"), default="qmm")
+                                         "quant_adamw", "row_absmax"), default="qmm")
     args = ap.parse_args()
     sys.path[:0] = [args.root, args.root + "/src"]
     import torch
@@ -42,7 +43,7 @@ def main():
     import chip_smoke
     from repro_torch.kernels import _build
 
-    _build.load(args.kernel)
+    _build.load({"row_absmax": "stoch_quant"}.get(args.kernel, args.kernel))
     if hasattr(chip_smoke, "_int32_rate"):      # the int32 bound of the hashing rows
         chip_smoke.INT32_OPS = chip_smoke._int32_rate()
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,8 +1,11 @@
 // common.cuh — small device and host helpers that several kernels share:
-// the exact decode of int8 / int4 codes to f32 (csrc/qmm_core.cuh, csrc/qmv.cu),
-// the exact split of f32 into three bf16 pieces (csrc/qmm_t.cu, csrc/ssd.cu)
-// and the per-device opt-in to more than 48 KB of dynamic shared memory
-// (csrc/wgmma_tile.cuh's users, csrc/ssd.cu).
+// the exact decode of int8 / int4 codes to f32 (csrc/qmm_core.cuh,
+// csrc/qmv.cu, csrc/quant_adamw.cu), the max that keeps NaN
+// (csrc/qmm_qout.cu, csrc/quant_adamw.cu, csrc/stoch_quant.cu), the
+// last-block-to-arrive test of the in-launch merges (csrc/qmv.cu,
+// csrc/quant_adamw.cu), the exact split of f32 into three bf16 pieces
+// (csrc/qmm_t.cu, csrc/ssd.cu) and the per-device opt-in to more than 48 KB
+// of dynamic shared memory (csrc/wgmma_tile.cuh's users, csrc/ssd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +25,28 @@ __device__ __forceinline__ float int8_at(uint32_t w_xor80) {
 template <int Q>
 __device__ __forceinline__ float nib_at(uint32_t nibbles) {
   return __uint_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7440 | Q)) - 8388616.f;
+}
+
+// max that keeps a NaN from either side, as jnp.max and torch.amax do
+// (fmaxf returns the operand that is not NaN); exact in any order
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// the last block of `slot` to arrive returns true (for every thread of the
+// block), after setting the slot's counter back to 0: every block calls it
+// once, after its partial is written, and `splits` blocks share the slot
+__device__ __forceinline__ bool last_to_arrive(int* counters, int slot, int splits) {
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    is_last = atomicAdd(counters + slot, 1) == splits - 1;
+    if (is_last) counters[slot] = 0;
+  }
+  __syncthreads();
+  if (is_last) __threadfence();
+  return is_last;
 }
 
 // two f32 values → the bf16 pairs of their three pieces: hi = bf16(v),

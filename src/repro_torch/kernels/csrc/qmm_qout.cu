@@ -53,11 +53,6 @@ __device__ __forceinline__ float row_value(const float* __restrict__ part, int s
   return s;
 }
 
-// max that keeps a NaN on either side (jnp.max semantics; fmaxf drops it)
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
 template <bool OUT_BF16>
 __global__ void __launch_bounds__(kEpiThreads)
 qout_epilogue(const float* __restrict__ part, const uint32_t* __restrict__ rand,

@@ -75,21 +75,6 @@ __device__ __forceinline__ uint32_t word(uint4 q, int i) {
   return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
 }
 
-// the last block of `slot` to arrive returns true (for every thread of the
-// block), after setting the slot's counter back to 0
-__device__ __forceinline__ bool last_to_arrive(int* counters, int slot, int splits) {
-  __shared__ bool is_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    is_last = atomicAdd(counters + slot, 1) == splits - 1;
-    if (is_last) counters[slot] = 0;
-  }
-  __syncthreads();
-  if (is_last) __threadfence();
-  return is_last;
-}
-
 // rows: block (r, z) sums codes[r, chunk z] · v[chunk z]; W bytes a load
 template <int W, int U>
 __global__ void __launch_bounds__(kThreads) qmv_rows(Args a) {

@@ -12,9 +12,12 @@
 //   (m, v) = finite ? (m, v) : (m_prev, v_prev)
 //   update = clamp((m / b1c) / (√(v / b2c) + eps), ±uclip)
 //   master' = finite ? master − lr · (update + wd · master) : master
-// Pass 1 writes, per block of kRowsPerBlock rows, the column absmaxes of the
-// new m and √v; the host reduces those (a max, exact in any order) to the
-// new scales s = absmax / qmax (0 → 1). Pass 2 recomputes m and v, writes the
+// Pass 1 reduces the column absmaxes of the new m and √v; the new scales
+// are s = absmax / qmax (0 → 1, an IEEE division). It has two entries on one
+// body: the parity entry writes the Pallas kernel's partials, one row of
+// column absmaxes per block of 256 rows; the path entry (qadamw_scales)
+// merges them in the same launch and writes the new scales, so pass 2
+// follows it with nothing between. Pass 2 recomputes m and v, writes the
 // new master and re-encodes both moments stochastically:
 //   code = clip(⌊t⌋ + [u < t − ⌊t⌋], ±qmax), t = m / s_m (resp. √v / s_v),
 // with u1 = (w >> 16) · 2⁻¹⁶ for m and u2 = (w & 0xFFFF) · 2⁻¹⁶ for √v
@@ -45,16 +48,34 @@
 // branch to a slow subroutine for a zero operand, and a training step's
 // moments are mostly 0: update_one sets the results of zero moments
 // without dividing, bit-equal (scripts/qadamw_pass2_timing.py times pass 2
-// on such data). The design is
-// coalesced streaming: in pass 1 a thread owns one column and walks its rows
-// (consecutive threads on consecutive columns); pass 2 is a grid-stride loop
-// in which a thread takes four consecutive elements at a time where C is a
-// multiple of 4 and the operands are 16-byte aligned (16-byte loads of
-// master, g and rand, 4-byte loads of the code planes, their codes decoded
-// and packed by byte permutes, no I2F or F2I), so four hashes and four
-// updates are in flight per thread, and one element at a time otherwise;
-// the column is advanced without a division in the loop. The per-column
-// scales stay in L1/L2.
+// on such data).
+//
+// Pass 1's design (quant_adamw.plan in kernels/quant_adamw.py picks the
+// layout from the shape and the addresses; this file takes it unchanged):
+// a block of 8 warps owns a tile of 32 · W columns over a run of `rows`
+// rows; a lane owns W consecutive columns (W 4 where C % 4 == 0 and g is
+// 16-byte, the code planes 4-byte aligned: one 16-byte load of g and two
+// 4-byte code loads a row, the codes decoded by byte permutes as pass 2's
+// vector path does; else W 1), and each warp walks every 8th row of the
+// run, issuing U rows' loads before its first max. The 8 warps' maxima
+// meet once in shared memory. The path entry sizes the runs so that every
+// leaf of the training path has at least 4 blocks per SM where its shape
+// allows; each block folds its maxima into a kept workspace by atomicMax
+// on their bits (the values folded are magnitudes with the sign bit clear,
+// so their bits order as they do, a NaN above +inf), and the last block
+// of a column tile to arrive (an arrival counter after __threadfence, as
+// csrc/qmv.cu's merge) takes the tile's maxima with atomicExch, leaving 0,
+// and writes the scales: the counters and the workspace, zeroed once when
+// allocated, are 0 between calls, so no launch needs a memset. A max is
+// exact in any order and nan_max keeps a NaN (as jnp.max does), so both
+// entries are bit-equal to the plain versions whatever the split. Pass 2 is
+// a grid-stride loop in which a thread takes four consecutive elements at
+// a time where C is a multiple of 4 and the operands are 16-byte aligned
+// (16-byte loads of master, g and rand, 4-byte loads of the code planes,
+// their codes decoded and packed by byte permutes, no I2F or F2I), so four
+// hashes and four updates are in flight per thread, and one element at a
+// time otherwise; the column is advanced without a division in the loop.
+// The per-column scales stay in L1/L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,7 +85,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 256;
+constexpr int kWarps = kThreads / 32;
 
 // the step's traced scalars, one device array (the Pallas kernel's SMEM
 // operand): they come out of the gradient norm, so they never visit the host
@@ -109,30 +130,144 @@ __device__ __forceinline__ void rand_halves(uint32_t w, float& u1, float& u2) {
   u2 = (__uint_as_float(0x4B000000u | (w & 0xFFFFu)) - 8388608.f) * (1.f / 65536.f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-absmax_kernel(const float* __restrict__ g, const int8_t* __restrict__ mc,
-              const float* __restrict__ ms, const int8_t* __restrict__ vc,
-              const float* __restrict__ vs, const float* __restrict__ par,
-              float* __restrict__ mx, float* __restrict__ vx, long long R,
-              long long C, Consts k) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const float clip = par[P_CLIP];
-  const bool ok = par[P_FINITE] > 0.f;
-  const float msc = ms[c], vsc = vs[c];
-  const long long r0 = (long long)blockIdx.y * kRowsPerBlock;
-  const long long r1 = min(R, r0 + kRowsPerBlock);
-  float am = 0.f, av = 0.f;
-  for (long long r = r0; r < r1; ++r) {
-    const long long i = r * C + c;
-    float m, v;
-    moments(g[i], static_cast<float>(mc[i]), msc, static_cast<float>(vc[i]), vsc, clip,
-            ok, k, m, v);
-    am = fmaxf(am, fabsf(m));
-    av = fmaxf(av, __fsqrt_rn(v));
+// pass 1's operands and layout (quant_adamw.plan)
+struct AbsmaxArgs {
+  const float* g;
+  const int8_t* mc;
+  const float* ms;
+  const int8_t* vc;
+  const float* vs;
+  const float* par;
+  float* out_m;           // partials: (runs, C) column absmaxes; else (C,) new scales
+  float* out_v;
+  unsigned int* ws;       // scales over runs > 1: (2, C) maxima as f32 bits, 0 between calls
+  int* counters;          // scales over runs > 1: one a column tile, 0 between calls
+  long long R, C;
+  int rows, runs;         // rows a block; blocks along R (gridDim.y)
+  int partials;           // 1: the parity entry (partials, no merge)
+  Consts k;
+};
+
+// a new scale from a column's absmax: absmax / qmax, 0 → 1, NaN stays NaN
+__device__ __forceinline__ float scale_of(float absmax, float qmax) {
+  return absmax == 0.f ? 1.f : __fdiv_rn(absmax, qmax);
+}
+
+// fold one element's new |m| and √v into its column's maxima (fabsf also
+// clears a NaN's sign bit)
+__device__ __forceinline__ void fold(float g, float mc, float ms, float vc, float vs,
+                                     float clip, bool ok, const Consts& k, float& am,
+                                     float& av) {
+  float m, v;
+  moments(g, mc, ms, vc, vs, clip, ok, k, m, v);
+  am = nan_max(am, fabsf(m));
+  av = nan_max(av, fabsf(__fsqrt_rn(v)));
+}
+
+// block (tile, run): columns [tile · 32W, +32W) over rows [run · rows, +rows)
+template <int W, int U>
+__global__ void __launch_bounds__(kThreads) absmax_kernel(const AbsmaxArgs a) {
+  constexpr int kTile = 32 * W;
+  const int lane = threadIdx.x & 31, wy = threadIdx.x >> 5;
+  const long long c0 = (long long)blockIdx.x * kTile + lane * W;
+  const long long r0 = (long long)blockIdx.y * a.rows;
+  const long long r1 = min(a.R, r0 + a.rows);
+  const bool live = c0 < a.C;  // W 4 takes C % 4 == 0: all four columns are
+  const float clip = a.par[P_CLIP];
+  const bool ok = a.par[P_FINITE] > 0.f;
+  float msc[W], vsc[W], am[W], av[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    msc[w] = live ? a.ms[c0 + w] : 0.f;
+    vsc[w] = live ? a.vs[c0 + w] : 0.f;
+    am[w] = av[w] = 0.f;
   }
-  mx[blockIdx.y * C + c] = am;
-  vx[blockIdx.y * C + c] = av;
+  for (long long r = r0 + wy; live && r < r1; r += kWarps * U) {
+    if constexpr (W == 4) {
+      float4 gq[U];
+      uint32_t mq[U], vq[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {   // every load of the U rows first
+        const long long i = (r + u * kWarps) * a.C + c0;
+        const bool in = r + u * kWarps < r1;
+        gq[u] = in ? __ldg(reinterpret_cast<const float4*>(a.g + i))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        mq[u] = in ? __ldg(reinterpret_cast<const unsigned int*>(a.mc + i)) ^ 0x80808080u : 0u;
+        vq[u] = in ? __ldg(reinterpret_cast<const unsigned int*>(a.vc + i)) ^ 0x80808080u : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r + u * kWarps >= r1) break;
+        fold(gq[u].x, int8_at<0>(mq[u]), msc[0], int8_at<0>(vq[u]), vsc[0], clip, ok, a.k,
+             am[0], av[0]);
+        fold(gq[u].y, int8_at<1>(mq[u]), msc[1], int8_at<1>(vq[u]), vsc[1], clip, ok, a.k,
+             am[1], av[1]);
+        fold(gq[u].z, int8_at<2>(mq[u]), msc[2], int8_at<2>(vq[u]), vsc[2], clip, ok, a.k,
+             am[2], av[2]);
+        fold(gq[u].w, int8_at<3>(mq[u]), msc[3], int8_at<3>(vq[u]), vsc[3], clip, ok, a.k,
+             am[3], av[3]);
+      }
+    } else {
+      float gq[U];
+      int8_t mq[U], vq[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long i = (r + u * kWarps) * a.C + c0;
+        const bool in = r + u * kWarps < r1;
+        gq[u] = in ? __ldg(a.g + i) : 0.f;
+        mq[u] = in ? __ldg(a.mc + i) : int8_t(0);
+        vq[u] = in ? __ldg(a.vc + i) : int8_t(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r + u * kWarps >= r1) break;
+        fold(gq[u], int8_at<0>(static_cast<uint8_t>(mq[u]) ^ 0x80u), msc[0],
+             int8_at<0>(static_cast<uint8_t>(vq[u]) ^ 0x80u), vsc[0], clip, ok, a.k, am[0],
+             av[0]);
+      }
+    }
+  }
+  // the 8 warps' maxima meet once; thread (arr, col) takes column col of
+  // m (arr 0) or √v (arr 1)
+  __shared__ float red[2][kWarps][kTile];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    red[0][wy][lane * W + w] = am[w];
+    red[1][wy][lane * W + w] = av[w];
+  }
+  __syncthreads();
+  const int arr = threadIdx.x / kTile, col = threadIdx.x % kTile;
+  const long long c = (long long)blockIdx.x * kTile + col;
+  const bool mine = arr < 2 && c < a.C;
+  float best = 0.f;
+  if (mine) {
+    best = red[arr][0][col];
+#pragma unroll
+    for (int y = 1; y < kWarps; ++y) best = nan_max(best, red[arr][y][col]);
+  }
+  float* out = arr == 0 ? a.out_m : a.out_v;
+  if (a.partials) {
+    if (mine) out[(long long)blockIdx.y * a.C + c] = best;
+    return;
+  }
+  if (a.runs == 1) {
+    if (mine) out[c] = scale_of(best, a.k.qmax);
+    return;
+  }
+  unsigned int* slot = a.ws + (mine ? arr * a.C + c : 0);
+  if (mine && __float_as_uint(best) != 0u) atomicMax(slot, __float_as_uint(best));
+  if (!last_to_arrive(a.counters, blockIdx.x, a.runs)) return;
+  if (mine) out[c] = scale_of(__uint_as_float(atomicExch(slot, 0u)), a.k.qmax);
+}
+
+template <int W>
+cudaError_t launch_absmax(int unroll, dim3 grid, const AbsmaxArgs& a, cudaStream_t st) {
+  switch (unroll) {
+    case 4: absmax_kernel<W, 4><<<grid, kThreads, 0, st>>>(a); break;
+    case 8: absmax_kernel<W, 8><<<grid, kThreads, 0, st>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // the step's traced scalars of pass 2, read once per thread
@@ -289,24 +424,41 @@ int dispatch_update(const void* master, const void* g, const void* mc, const voi
 
 }  // namespace
 
-// Pass 1: mx, vx (ceil(R / 256), C) f32 column absmaxes of the new m and
-// √v per block of 256 rows. g (R, C) f32; mc, vc (R, C) int8; ms, vs (C)
-// f32; par the device array [clip, finite, lr, b1c, b2c]. Returns the
-// cudaError_t of the launch (0 = success).
+// Pass 1, both entries, as quant_adamw.plan laid it out: a block per
+// column tile of 32 · width columns (tiles of them) and run of `rows` rows
+// (runs of them), each warp issuing `unroll` rows' loads before its first
+// max. g (R, C) f32; mc, vc (R, C) int8; ms, vs (C) f32; par the device
+// array [clip, finite, lr, b1c, b2c]. partials = 1 (the parity entry):
+// out_m, out_v (runs, C) f32, each run's column absmaxes of the new m and
+// √v. partials = 0: out_m, out_v (C) f32 the new scales absmax / qmax (0 →
+// 1), merged in the launch through ws (2, C) uint32 and counters (tiles)
+// int32, both 0, when runs > 1. width 4 promises C % 4 == 0, g 16-byte and
+// the code planes 4-byte aligned. Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int qadamw_absmax_launch(const void* g, const void* mc, const void* ms,
                                     const void* vc, const void* vs, const void* par,
-                                    void* mx, void* vx, long long R, long long C,
-                                    float b1, float omb1, float b2, float omb2,
-                                    void* stream) {
-  const Consts k{b1, omb1, b2, omb2, 0.f, 0.f, 0.f, 0.f};
-  dim3 grid((unsigned)((C + kThreads - 1) / kThreads),
-            (unsigned)((R + kRowsPerBlock - 1) / kRowsPerBlock));
-  absmax_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const int8_t*>(mc),
-      static_cast<const float*>(ms), static_cast<const int8_t*>(vc),
-      static_cast<const float*>(vs), static_cast<const float*>(par),
-      static_cast<float*>(mx), static_cast<float*>(vx), R, C, k);
-  return cudaGetLastError();
+                                    void* out_m, void* out_v, void* ws, void* counters,
+                                    long long R, long long C, float b1, float omb1, float b2,
+                                    float omb2, float qmax, int width, int unroll, int rows,
+                                    long long tiles, int runs, int partials, void* stream) {
+  if (R < 1 || C < 1 || rows < 1 || runs < 1 || runs > 65535 || tiles < 1 ||
+      tiles > 2147483647LL || tiles * 32 * width < C || (long long)runs * rows < R ||
+      (long long)(runs - 1) * rows >= R || (width == 4 && C % 4) ||
+      (!partials && runs > 1 && (ws == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  AbsmaxArgs a{static_cast<const float*>(g), static_cast<const int8_t*>(mc),
+               static_cast<const float*>(ms), static_cast<const int8_t*>(vc),
+               static_cast<const float*>(vs), static_cast<const float*>(par),
+               static_cast<float*>(out_m), static_cast<float*>(out_v),
+               static_cast<unsigned int*>(ws), static_cast<int*>(counters), R, C, rows, runs,
+               partials, Consts{b1, omb1, b2, omb2, 0.f, 0.f, qmax, 0.f}};
+  const dim3 grid((unsigned)tiles, (unsigned)runs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 1: return launch_absmax<1>(unroll, grid, a, st);
+    case 4: return launch_absmax<4>(unroll, grid, a, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // Pass 2: the new master (R, C) f32 and both moment code planes (R, C) int8

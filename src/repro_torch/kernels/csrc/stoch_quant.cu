@@ -11,9 +11,9 @@
 // row's columns with 16-byte vector loads between a scalar head that reaches
 // 16-byte alignment and a scalar tail, reduce with warp shuffles, then across
 // warps through shared memory. The max propagates NaN, as jnp.max and
-// torch.amax do (fmaxf would drop it); fabsf maps −0 to +0, as the
-// reference's abs does. A max is exact in any order, so the result is
-// bit-exact with the plain version.
+// torch.amax do (common.cuh's nan_max; fmaxf would drop it); fabsf maps −0
+// to +0, as the reference's abs does. A max is exact in any order, so the
+// result is bit-exact with the plain version.
 //
 // stoch_quant: x (R, C) f32/bf16, rand (R, C) uint32, scale (R) f32 → int8
 // codes in [−s, s], bit-exact with kernels/ref.stoch_quant_ref given rand:
@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kAbsmaxThreads = 256;
@@ -45,11 +47,6 @@ constexpr int kQuantThreads = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// max that propagates NaN from either side
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
 
 // |x| of the VEC elements held in one 16-byte word, folded into m
 __device__ __forceinline__ float vec_absmax(float m, const uint4& w, float) {

@@ -162,10 +162,10 @@ def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand=None,
                        key=None, qmax: int, b1: float, b2: float, eps: float, wd: float,
                        lr, b1c, b2c, clip, finite, uclip: float = 0.0):
     """Fused quantized-moment AdamW leaf update through the two kernels:
-    pass 1 reduces the new-moment column absmaxes per row block, the host
-    side takes their max (exact in any order) to the new scales, pass 2
-    updates the master and re-encodes both moments. The f32 moments never
-    reach device memory.
+    pass 1 (``qadamw_scales``) reduces the new-moment column absmaxes over
+    every row and writes the new scales in one launch, and pass 2 follows
+    it directly, with nothing between: it updates the master and re-encodes
+    both moments. The f32 moments never reach device memory.
 
     master/g (R, C) f32; codes (R, C) int8; scales (C,) f32; rand (R, C)
     int32 (uint32 words: hi/lo 16 bits drive the m and √v draws) or, in
@@ -181,10 +181,8 @@ def quant_adamw_update(master, g, m_codes, m_scale, v_codes, v_scale, rand=None,
                      for v in (clip, finite, lr, b1c, b2c)]),
         torch.zeros(3, dtype=torch.float32, device=dev)])
     master, g = master.to(torch.float32), g.to(torch.float32)
-    mx, vx = qa_mod.qadamw_absmax(g, m_codes, m_scale, v_codes, v_scale, params,
-                                  b1=b1, b2=b2)
-    msn = ref.adamw_scale_ref(torch.amax(mx, dim=0), qmax)
-    vsn = ref.adamw_scale_ref(torch.amax(vx, dim=0), qmax)
+    msn, vsn = qa_mod.qadamw_scales(g, m_codes, m_scale, v_codes, v_scale, params,
+                                    b1=b1, b2=b2, qmax=qmax)
     nm, mc, vc = qa_mod.qadamw_update(master, g, m_codes, m_scale, v_codes, v_scale,
                                       msn, vsn, rand, params, key=key, b1=b1, b2=b2,
                                       eps=eps, wd=wd, qmax=qmax, uclip=uclip)

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.quant.qtensor import unpack_int4
 
-from . import _build
+from . import _build, _workspace
+from ._workspace import current_stream as _stream
 
 NEG_INF = -2.0 ** 30   # matches models/attention.py: finite, exp() == 0.0 in f32
 launches = 0           # kernel launches made by paged_decode_attn()
@@ -90,9 +91,6 @@ def typed(lib):
     return lib
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
 
 _PAGE_DTYPE = {0: torch.bfloat16, 8: torch.int8, 4: torch.uint8}
 MAX_D = 512                 # csrc/paged_attn.cu · kMaxChunks: 4 chunks of 4 per lane
@@ -130,20 +128,9 @@ def plan(b: int, h: int, hkv: int, d: int, maxp: int, row_bytes: int,
     return Plan(splits, b * hkv * splits * (r * d + 2 * r), b * hkv, w)
 
 
-# per (device, stream): the split partials and the arrival counters, grown
-# when a larger grid needs more; the counters are zeroed only when
-# allocated, and every launch leaves them at 0
+# per (device, stream): the split partials and the arrival counters
+# (_workspace.kept)
 _WORKSPACE: dict = {}
-
-
-def _workspace(device, stream: int, p: Plan):
-    ws, counters = _WORKSPACE.get((device, stream), (None, None))
-    if ws is None or ws.numel() < p.ws:
-        ws = torch.empty(max(p.ws, 1), dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < p.counters:
-        counters = torch.zeros(p.counters, dtype=torch.int32, device=device)
-    _WORKSPACE[(device, stream)] = (ws, counters)
-    return ws, counters
 
 
 def paged_decode_attn(q, k_pages, v_pages, k_scale, v_scale, block_table,
@@ -196,7 +183,7 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, bt, lens, softmax_scale, kv_b
     p = plan(b, h, hkv, d, bt.shape[1], dk * k_pages.element_size(),
              k_pages.data_ptr() | v_pages.data_ptr(), lib.pages_per_split)
     stream = _stream(q)
-    ws, counters = _workspace(q.device, stream, p)
+    ws, counters = _workspace.kept(_WORKSPACE, q.device, stream, p.ws, p.counters)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     err = lib.paged_attn_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),

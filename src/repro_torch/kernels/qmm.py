@@ -20,6 +20,8 @@ import torch
 from repro_torch.quant.qtensor import unpack_int4
 
 from . import _build
+from ._workspace import SMS
+from ._workspace import current_stream as _stream
 
 launches = 0          # kernel launches made by qmm() (plain calls excluded)
 simt_launches = 0     # ... of them on the SIMT core
@@ -34,7 +36,6 @@ shape_launches: collections.Counter = collections.Counter()  # (packed, M, K, N)
 # cores win every shape
 TC_THRESHOLD = 8
 CORES = {"simt": 0, "tc": 1}   # the core ids of csrc/qmm_core.cuh
-SMS = 132                      # streaming multiprocessors of an H100
 # the tiles that split-K counts (rows of x, columns) and the K step of a
 # split; the C side builds the grid from the same tiles (csrc/qmm_core.cuh)
 TILES = {"simt": (4, 512, 1), "tc": (128, 256, 64)}
@@ -111,9 +112,6 @@ def qmm(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"qmm: scale has {scale.numel()} entries, need {n}")
     return _launch(x.contiguous(), codes.contiguous(), scale, packed)
 
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch(x, codes, scale, packed):

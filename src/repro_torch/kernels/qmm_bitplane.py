@@ -19,6 +19,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._workspace import SMS
+from ._workspace import current_stream as _stream
 from .ref import qmm_bitplane_ref as qmm_bitplane_plain
 
 launches = 0          # kernel launches made by qmm_bitplane() (plain calls excluded)
@@ -27,7 +29,6 @@ tc_launches = 0       # ... of them on the tensor-core core
 shape_launches: collections.Counter = collections.Counter()  # (P, M, K, N) → launches
 
 CORES = {"simt": 0, "tc": 1}   # the core ids of csrc/qmm_bitplane.cu
-SMS = 132                      # streaming multiprocessors of an H100
 # the tiles of each core (rows of x, columns, K step); the C side builds the
 # grid from the same tiles (csrc/qmm_bitplane.cu, csrc/wgmma_tile.cuh)
 TILES = {"simt": (4, 1024, 1), "tc": (128, 256, 64)}
@@ -91,9 +92,6 @@ def _lib():
         lib._typed = True
     return lib
 
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def qmm_bitplane(x: torch.Tensor, planes: torch.Tensor,

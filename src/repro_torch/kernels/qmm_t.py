@@ -18,6 +18,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._workspace import SMS
+from ._workspace import current_stream as _stream
 from .ref import qmm_t_ref
 
 launches = 0          # kernel launches made by qmm_t() (plain calls excluded)
@@ -33,7 +35,6 @@ qmm_t_plain = qmm_t_ref
 # both cores at M 1-32 over the path's (K, N) (PERF.md §6)
 TC_THRESHOLD = 8
 CORES = {"stream": 0, "tc": 1}   # the core ids of csrc/qmm_t.cu
-SMS = 132                        # streaming multiprocessors of an H100
 # the tensor-core tile (dx rows, dx columns, contraction step); the C side
 # builds its grid from the same tile (csrc/qmm_t.cu · tct)
 TC_TILE = (128, 256, 64)         # one ~193 KB block per SM: a wave is SMS blocks
@@ -90,9 +91,6 @@ def _lib():
         lib._typed = True
     return lib
 
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def qmm_t(g: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,

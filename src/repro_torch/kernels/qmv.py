@@ -17,7 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, _workspace
+from ._workspace import current_stream as _stream
 from .ref import qmv_ref
 
 launches = 0          # kernel launches made by qmv() (plain calls excluded)
@@ -108,24 +109,10 @@ def _lib():
     return lib
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
-
-# per (device, stream): the chunk partials and the arrival counters, grown
-# when a call needs more; the counters are zeroed only when allocated, and
-# every launch leaves them at 0
+# per (device, stream): the split partials and the arrival counters
+# (_workspace.kept)
 _WORKSPACE: dict = {}
-
-
-def _workspace(device, stream: int, p: Plan):
-    ws, counters = _WORKSPACE.get((device, stream), (None, None))
-    if ws is None or ws.numel() < p.ws:
-        ws = torch.empty(max(p.ws, 1), dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < p.counters:
-        counters = torch.zeros(max(p.counters, 1), dtype=torch.int32, device=device)
-    _WORKSPACE[(device, stream)] = (ws, counters)
-    return ws, counters
 
 
 def qmv(codes: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -151,7 +138,7 @@ def _launch(codes, v):
     sr, sc = codes.stride()
     p = plan(r, c, sr, sc, codes.data_ptr())
     stream = _stream(codes)
-    ws, counters = _workspace(codes.device, stream, p)
+    ws, counters = _workspace.kept(_WORKSPACE, codes.device, stream, p.ws, p.counters)
     out = torch.empty(r, dtype=torch.float32, device=codes.device)
     lib = _lib()
     err = lib.qmv_launch(codes.data_ptr(), sr, sc, v.data_ptr(), out.data_ptr(),

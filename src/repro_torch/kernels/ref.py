@@ -80,8 +80,10 @@ def adamw_moments_ref(g, m_codes, m_scale, v_codes, v_scale, clip, finite, *,
 
 
 def adamw_scale_ref(absmax, qmax: int):
-    """New moment scales from column absmaxes: absmax / qmax, 0 → 1."""
-    return torch.where(absmax == 0, torch.ones_like(absmax), absmax / qmax)
+    """New moment scales from column absmaxes: absmax / qmax, 0 → 1; an
+    IEEE division on every device (``div_exact``, ROADMAP C17), as the
+    kernel's ``__fdiv_rn``."""
+    return torch.where(absmax == 0, torch.ones_like(absmax), div_exact(absmax, qmax))
 
 
 def adamw_update_ref(master, m_store, v_store, msn, vsn, rand, *, qmax: int,

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._workspace import current_stream as _stream
 from .qmm_t import split_bf16x3
 from .ref import ssd_chunk_scan_ref
 
@@ -140,9 +141,6 @@ def _lib():
         lib._typed = True
     return lib
 
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _unit_last(t: torch.Tensor) -> torch.Tensor:

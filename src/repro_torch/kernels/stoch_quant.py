@@ -28,6 +28,7 @@ import torch
 from repro_torch import prng
 
 from . import _build
+from ._workspace import current_stream as _stream
 from .ref import ds_quant_ref, row_absmax_ref, stoch_quant_ref
 
 launches = 0                  # ds_quant kernel launches (the rand entry)
@@ -78,21 +79,25 @@ def _check_x(name: str, x: torch.Tensor):
 def row_absmax(x: torch.Tensor) -> torch.Tensor:
     """(R, C) f32/bf16 → (R, 1) f32 row maxima of |x| (the paper's linf row
     scale M(v); an all-zero row gives 0, NaN propagates)."""
-    global row_absmax_launches
     _check_x("row_absmax", x)
     r, c = x.shape
     if c == 0:
         raise ValueError("row_absmax: x has no columns")
     if not x.is_cuda:
         return row_absmax_plain(x)
-    x = x.contiguous()
+    return _absmax_launch(x.contiguous())
+
+
+def _absmax_launch(x: torch.Tensor) -> torch.Tensor:
+    """Launch ``row_absmax`` once on contiguous x: a CTA a row."""
+    global row_absmax_launches
+    r, c = x.shape
     out = torch.empty((r, 1), dtype=torch.float32, device=x.device)
     if r == 0:
         return out
     lib = _sq_lib()
     err = lib.row_absmax_launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                                out.data_ptr(), r, c,
-                                torch.cuda.current_stream(x.device).cuda_stream)
+                                out.data_ptr(), r, c, _stream(x))
     if err:
         _raise(lib, "row_absmax", err)
     row_absmax_launches += 1
@@ -133,8 +138,7 @@ def stoch_quant(x: torch.Tensor, rand: torch.Tensor, scale: torch.Tensor, *,
     lib = _sq_lib()
     err = lib.stoch_quant_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), rand.data_ptr(), scale.data_ptr(),
-        codes.data_ptr(), r, c, int(s), vec_io,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        codes.data_ptr(), r, c, int(s), vec_io, _stream(x))
     if err:
         _raise(lib, "stoch_quant", err)
     stoch_quant_launches += 1
@@ -187,7 +191,7 @@ def _ds_launch(name: str, entry, x: torch.Tensor, word_args, scale: torch.Tensor
     c2 = torch.empty((r, c), dtype=torch.int8, device=x.device)
     err = entry(x.data_ptr(), int(x.dtype == torch.bfloat16), *word_args,
                 scale.data_ptr(), int(scale_axis == "col"), c1.data_ptr(), c2.data_ptr(),
-                r, c, int(s), torch.cuda.current_stream(x.device).cuda_stream)
+                r, c, int(s), _stream(x))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{_lib().ds_quant_error_string(err).decode()}")

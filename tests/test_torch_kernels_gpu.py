@@ -13,10 +13,13 @@ softmax); ``ds_quant`` bit-exact (same rand, IEEE division, no FMA
 contraction); ``train_linear`` per-epoch losses rel 1e-5 between the card
 and the CPU's plain path (same keys, same codes; sums in another order);
 ``row_absmax`` and ``stoch_quant`` bit-exact (a max is exact in any
-order; the rounding as ``ds_quant``'s); ``qmm_t`` rel 1e-5 of the largest
+order, so ``row_absmax`` at every layout its plan gives; the rounding as
+``ds_quant``'s); ``qmm_t`` rel 1e-5 of the largest
 output; ``quant_adamw`` the reference's
 contract (masters rtol 2e-6 / atol 2e-6, scales rtol 1e-6, ≥ 99.9 % of
-codes equal, off by at most one level); the reduced training step on the
+codes equal, off by at most one level), and pass 1's path entry
+``qadamw_scales`` bit-equal to its plain version and to the scales of the
+max of the parity entry's partials, NaN kept; the reduced training step on the
 card against the CPU's plain path: losses rtol 1e-4; ``qmm_bitplane`` rel
 1e-5 of the largest output, and bit-equal rows at every M; the reduced
 bitplane engines (plain, sliced, speculative) on the card against the CPU's
@@ -380,6 +383,34 @@ def test_row_absmax_kernel_unaligned_view(cuda):
         assert torch.equal(tsq.row_absmax(x), tsq.row_absmax_plain(x))
 
 
+# row_absmax at the path's shapes (gisette's 6000 rows, the batch's 16)
+# and at edges: one long row, C 1, an odd C, 4224 short rows; contiguous
+# and 4 bytes into the storage (the scalar head and tail)
+ROW_ABSMAX_SHAPES = [(6000, 5000), (16, 5000), (1, 100000), (5, 1), (9, 1003), (4224, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,c", ROW_ABSMAX_SHAPES)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_row_absmax_shapes_bit_exact(cuda, r, c, xdtype, offset):
+    gen = torch.Generator(device=cuda).manual_seed(r + c)
+    flat = (torch.randn(r * c + offset, generator=gen, device=cuda) * 2).to(xdtype)
+    x = flat[offset:].view(r, c)
+    if r > 2:
+        x[0] = 0.0                               # an all-zero row
+        x[r // 2, c // 3] = float("nan")         # a NaN row
+    x[-1, -1] = -0.0
+    before = tsq.row_absmax_launches
+    got = tsq.row_absmax(x)
+    torch.cuda.synchronize()
+    assert tsq.row_absmax_launches == before + 1
+    want = tsq.row_absmax_plain(x)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and int(nan.sum()) == (r > 2)
+    assert torch.equal(got[~nan], want[~nan]) and not torch.signbit(got[~nan]).any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,c", SQ_SHAPES)
 @pytest.mark.parametrize("s", [1, 3, 15, 127])
@@ -681,9 +712,11 @@ OPK = dict(qmax=127, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, lr=1e-3, b1c=0.1,
 def test_quant_adamw_kernels_match_plain(cuda, shape, finite):
     args = _adamw_leaf(*shape, seed=shape[0], device=cuda)
     kw = dict(OPK, finite=finite)
-    before = (tqa.absmax_launches, tqa.update_launches)
+    # pass 1 is the path entry (qadamw_scales); the parity entry stays at 0
+    before = (tqa.scales_launches, tqa.absmax_launches, tqa.update_launches)
     got = tops.quant_adamw_update(*args, **kw)
-    assert (tqa.absmax_launches, tqa.update_launches) == (before[0] + 1, before[1] + 1)
+    assert (tqa.scales_launches, tqa.absmax_launches, tqa.update_launches) == \
+        (before[0] + 1, before[1], before[2] + 1)
     want = tops.quant_adamw_update(*(a.cpu() for a in args), **kw)
     torch.cuda.synchronize()
     nm, mc, ms, vc, vs = [x.cpu() for x in got]
@@ -711,6 +744,109 @@ def test_quant_adamw_absmax_blocks_match_plain(cuda):
     torch.testing.assert_close(vx.cpu(), vxp, rtol=1e-6, atol=0)
 
 
+# pass 1's path entry at every leaf of full-width gemma-2b (up/gate,
+# embed.table, k/v, ln1/ln2, q/o, down) and at odd shapes: R 1, a ragged
+# tile, 18 rows, C % 4 != 0, one column
+SCALES_SHAPES = [(36864, 16384), (256000, 2048), (36864, 256), (18, 2048), (36864, 2048),
+                 (294912, 2048), (1, 7), (257, 130), (300, 131), (5000, 1), (600, 300)]
+
+
+def _adamw_card_leaf(r, c, seed, device):
+    """(g, m codes, m scale, v codes, v scale) drawn on the card (the large
+    leaves would take minutes from numpy)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn(r, c, generator=gen, device=device) * 0.1
+    mc = torch.randint(-127, 128, (r, c), generator=gen, device=device, dtype=torch.int8)
+    vc = torch.randint(0, 128, (r, c), generator=gen, device=device, dtype=torch.int8)
+    ms = torch.rand(c, generator=gen, device=device) * 0.01 + 1e-4
+    vs = torch.rand(c, generator=gen, device=device) * 0.01 + 1e-4
+    return g, mc, ms, vc, vs
+
+
+def _params(device, finite=1.0, clip=0.5):
+    return torch.tensor([clip, finite, 1e-3, 0.1, 0.05, 0, 0, 0], dtype=torch.float32,
+                        device=device)
+
+
+def _scales_bit_equal(ops, params, *, nan_col=None):
+    """One launch of qadamw_scales: bit-equal to its plain version and to
+    the scale of the max of the parity entry's partials (NaN where the
+    column holds one); the merge's counters and maxima back at 0."""
+    before = (tqa.scales_launches, tqa.absmax_launches)
+    got = tqa.qadamw_scales(*ops, params, b1=0.9, b2=0.95, qmax=127)
+    torch.cuda.synchronize()
+    assert (tqa.scales_launches, tqa.absmax_launches) == (before[0] + 1, before[1])
+    plain = tqa.qadamw_scales_plain(*ops, params, b1=0.9, b2=0.95, qmax=127)
+    mx, vx = tqa.qadamw_absmax(*ops, params, b1=0.9, b2=0.95)
+    of_partials = (tref.adamw_scale_ref(torch.amax(mx, dim=0), 127),
+                   tref.adamw_scale_ref(torch.amax(vx, dim=0), 127))
+    for a, b, c in zip(got, plain, of_partials):
+        nan = torch.isnan(b)
+        if nan_col is not None:
+            assert nan[nan_col] and nan.sum() == 1
+        assert torch.equal(torch.isnan(a), nan) and torch.equal(torch.isnan(c), nan)
+        assert torch.equal(a[~nan], b[~nan]) and torch.equal(c[~nan], b[~nan])
+    stream = torch.cuda.current_stream(ops[0].device).cuda_stream
+    ws, counters = tqa._WORKSPACE[(ops[0].device, stream)]
+    assert not ws.any() and not counters.any()
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SCALES_SHAPES)
+@pytest.mark.parametrize("finite", [1.0, 0.0])
+def test_qadamw_scales_bit_equal_to_plain_and_partials(cuda, shape, finite):
+    ops = _adamw_card_leaf(*shape, seed=shape[0] + shape[1], device=cuda)
+    if shape[1] > 1:
+        for t in (ops[0], ops[1], ops[3]):       # an all-zero column: scale 1
+            t[:, 0] = 0
+    msn, vsn = _scales_bit_equal(ops, _params(cuda, finite))
+    assert (msn[0] == 1 and vsn[0] == 1) == (shape[1] > 1)
+    del ops
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(513, 2048), (257, 130), (96, 160)])
+def test_qadamw_scales_unaligned_views(cuda, shape):
+    # g 4 bytes into its storage, or the code planes 1 byte into theirs:
+    # one column a lane
+    r, c = shape
+    g, mc, ms, vc, vs = _adamw_card_leaf(r, c, seed=3, device=cuda)
+    gflat = torch.empty(r * c + 1, device=cuda)
+    gflat[1:] = g.reshape(-1)
+    cflat = torch.empty(r * c + 1, dtype=torch.int8, device=cuda)
+    cflat[1:] = mc.reshape(-1)
+    for ops in ((gflat[1:].view(r, c), mc, ms, vc, vs), (g, cflat[1:].view(r, c), ms, vc, vs)):
+        assert tqa.plan(r, c, tqa._alignment(ops[0], ops[1], ops[3])).width == 1
+        _scales_bit_equal(ops, _params(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(36864, 256), (18, 2048), (300, 131), (1, 7)])
+def test_qadamw_scales_keep_nan(cuda, shape):
+    r, c = shape
+    ops = _adamw_card_leaf(r, c, seed=4, device=cuda)
+    ops[0][r - 1, c // 2] = float("nan")
+    _scales_bit_equal(ops, _params(cuda), nan_col=c // 2)
+    mx, vx = tqa.qadamw_absmax(*ops, _params(cuda), b1=0.9, b2=0.95)
+    assert torch.isnan(mx[-1, c // 2]) and torch.isnan(vx[-1, c // 2])
+
+
+@pytest.mark.gpu
+def test_qadamw_scales_repeat_and_share_the_workspace(cuda):
+    # calls of other shapes between two calls leave the maxima and counters
+    # at 0: every call gives the same bits
+    a = _adamw_card_leaf(36864, 256, seed=5, device=cuda)
+    b = _adamw_card_leaf(600, 300, seed=6, device=cuda)
+    params = _params(cuda)
+    first = tqa.qadamw_scales(*a, params, b1=0.9, b2=0.95, qmax=127)
+    for _ in range(3):
+        tqa.qadamw_scales(*b, params, b1=0.9, b2=0.95, qmax=127)
+        again = tqa.qadamw_scales(*a, params, b1=0.9, b2=0.95, qmax=127)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
 @pytest.mark.gpu
 def test_train_step_card_matches_cpu_plain_path(cuda):
     from repro_torch import configs
@@ -731,10 +867,10 @@ def test_train_step_card_matches_cpu_plain_path(cuda):
                      channels=chans, device=where,
                      stream_cfg=TokenStreamConfig(cfg.vocab_size, 16, 2))
         start = tr.init_state() if start is None else start   # one set of weights
-        before = (tqmm.launches, tqmm_t.launches, tqa.absmax_launches)
+        before = (tqmm.launches, tqmm_t.launches, tqa.scales_launches)
         _, losses[str(where)] = tr.run(3, state=start.to(where))
         launched = [a - b for a, b in zip(
-            (tqmm.launches, tqmm_t.launches, tqa.absmax_launches), before)]
+            (tqmm.launches, tqmm_t.launches, tqa.scales_launches), before)]
         assert all(launched) if where == cuda else not any(launched)
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)
 

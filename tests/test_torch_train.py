@@ -58,6 +58,7 @@ from repro import configs as jconfigs
 from repro.data.pipeline import TokenStream as JStream
 from repro.data.pipeline import TokenStreamConfig as JStreamCfg
 from repro.kernels import ops as jops
+from repro.kernels import quant_adamw as jqa
 from repro.kernels import registry as jreg
 from repro.models import transformer as JT
 from repro.optim import adamw as jadamw
@@ -203,12 +204,70 @@ def test_quant_adamw_plain_matches_pallas(shape, finite):
     targs = [_t(a) for a in (master, g, mc, ms, vc, vs)] + [_t(rand.view(np.int32))]
     _adamw_contract(tref.quant_adamw_ref(*targs, **kw), want)
     # the two-pass wrappers on CPU tensors (what the cuda backend runs there)
-    before = (tqa.absmax_launches, tqa.update_launches)
+    before = (tqa.scales_launches, tqa.absmax_launches, tqa.update_launches)
     _adamw_contract(tops.quant_adamw_update(*targs, **kw), want)
-    assert (tqa.absmax_launches, tqa.update_launches) == before
+    assert (tqa.scales_launches, tqa.absmax_launches, tqa.update_launches) == before
     if not finite:
         np.testing.assert_array_equal(np32(tops.quant_adamw_update(*targs, **kw)[0]),
                                       master)
+
+
+def _pallas_scales(g, mc, ms, vc, vs, params, qmax):
+    """The reference's new scales: its pass-1 Pallas kernel in interpret
+    mode over the leaf padded to 128 as ``ops.quant_adamw_update`` pads
+    it, the max of the partials, absmax / qmax (0 → 1)."""
+    r, c = g.shape
+    pr, pc = -r % 128, -c % 128
+    pad2 = lambda a: jnp.asarray(np.pad(a, ((0, pr), (0, pc))))
+    pad1 = lambda a: jnp.asarray(np.pad(a, (0, pc)).reshape(1, -1))
+    mx, vx = jqa.qadamw_absmax(pad2(g), pad2(mc), pad1(ms), pad2(vc), pad1(vs),
+                               jnp.asarray(params), b1=0.9, b2=0.95, interpret=True)
+    out = []
+    for x in (jnp.max(mx, axis=0), jnp.max(vx, axis=0)):
+        out.append(np.asarray(jnp.where(x == 0, 1.0, x / qmax).astype(jnp.float32))[:c])
+    return out
+
+
+# pass 1's path entry (``qadamw_scales``, one launch on the card): its plain
+# version — the max of the parity entry's partials, then the scale — against
+# the reference's Pallas pass 1 and scale; XLA may contract the moments'
+# adds of products into FMAs, so one ulp
+@pytest.mark.parametrize("shape", [(96, 160), (300, 64), (513, 130)])
+@pytest.mark.parametrize("finite", [1.0, 0.0])
+def test_qadamw_scales_plain_matches_pallas(shape, finite):
+    _, g, mc, ms, vc, vs, _ = _adamw_leaf(*shape, seed=shape[1])
+    vc[:, 3] = 0
+    mc[:, 3] = 0
+    g[:, 3] = 0                                     # an all-zero column: scale 1
+    params = np.array([0.5, finite, 1e-3, 0.1, 0.05, 0, 0, 0], np.float32)
+    got = tqa.qadamw_scales_plain(*(_t(a) for a in (g, mc, ms, vc, vs, params)),
+                                  b1=0.9, b2=0.95, qmax=127)
+    want = _pallas_scales(g, mc, ms, vc, vs, params, 127)
+    for a, b in zip(got, want):
+        np.testing.assert_array_max_ulp(a.numpy(), b, maxulp=1)
+        assert a[3] == b[3] == 1
+
+
+def test_nan_gradient_reaches_the_scales_in_both_packages():
+    # a NaN in g at finite = 1 makes that column's new m and v NaN; jnp.max
+    # keeps it, and so must the port's pass 1 (ROADMAP B8)
+    _, g, mc, ms, vc, vs, _ = _adamw_leaf(300, 64, seed=7)
+    g[260, 5] = np.nan
+    params = np.array([1.0, 1.0, 1e-3, 0.1, 0.05, 0, 0, 0], np.float32)
+    targs = [_t(a) for a in (g, mc, ms, vc, vs, params)]
+    got = tqa.qadamw_scales_plain(*targs, b1=0.9, b2=0.95, qmax=127)
+    want = _pallas_scales(g, mc, ms, vc, vs, params, 127)
+    keep = np.arange(64) != 5
+    for a, b in zip(got, want):
+        a = a.numpy()
+        assert np.isnan(a[5]) and np.isnan(b[5])
+        np.testing.assert_array_max_ulp(a[keep], b[keep], maxulp=1)
+    mx, vx = tqa.qadamw_absmax(*targs, b1=0.9, b2=0.95)
+    assert np.isnan(mx[1, 5].item()) and np.isnan(vx[1, 5].item())
+    # the two-pass wrapper on CPU tensors hands pass 2 the same NaN scales
+    out = tops.quant_adamw_update(_t(np.zeros_like(g)), *targs[:5], None, key=prng.PRNGKey(1),
+                                  **OPK)
+    assert np.isnan(out[2][5].item()) and np.isnan(out[4][5].item())
 
 
 # ------------------------------------------------------------- VJP, codes --
@@ -442,9 +501,10 @@ def test_cuda_backend_on_cpu_launches_no_kernel(reference_runs):
     from repro_torch.kernels import qmm as tqmm
 
     states, _, batches = reference_runs[("pallas", "cuda")]
-    before = (tqmm.launches, tqmm_t.launches, tqa.absmax_launches, tqa.update_launches)
+    before = (tqmm.launches, tqmm_t.launches, tqa.scales_launches, tqa.absmax_launches,
+              tqa.update_launches)
     _port_step(("pallas", "cuda"))(train_state_from_numpy(states[0]), _tbatch(batches[0]))
-    assert (tqmm.launches, tqmm_t.launches, tqa.absmax_launches,
+    assert (tqmm.launches, tqmm_t.launches, tqa.scales_launches, tqa.absmax_launches,
             tqa.update_launches) == before
 
 
