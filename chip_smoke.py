@@ -8,9 +8,10 @@ NVIDIA card.
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes of its path — ``qmm`` at every gemma-2b projection at decode M,
    each prompt bucket of the served trace and the training batch, paged
-   attention at the serving shape (plus check-only rows at gemma-7b's and
-   granite-3-8b's head layouts and at long rows; every row of each call
-   bit-equal to the same row computed alone), ``ds_quant`` (bit-exact) and ``qmv``
+   attention at the serving shape and at slice 8's head layouts (gemma-7b's
+   MHA, granite-3-8b's and qwen2.5-14b's GQA, R = 4 and 5), plus check-only
+   long rows (every row of each call bit-equal to the same row computed
+   alone), ``ds_quant`` (bit-exact) and ``qmv``
    at every shape a path launches them at (gisette's batch 16 × 5000,
    gisette's whole matrix row-scaled at s 15, yearprediction's batch
    16 × 90 at s 7 and 31; ``ds_quant``'s keyed entry, which hashes its
@@ -154,13 +155,26 @@ NVIDIA card.
    steps; every launched shape must have been checked. ``[check]``: the
    reduced model (chunk 16, f32 and bf16, bits 0 and 8) on the card against
    the CPU's plain path;
-10. every plane the paths draw on the card takes the threefry kernel: a
+10. slice 8 — ``[kernel] qmm dense``: ``qmm`` at every projection of
+   gemma-7b, granite-3-8b and qwen2.5-14b (int8 and int4, decode M 4 and
+   each prompt bucket; qwen2.5-14b's legacy prefill M 128 at int8);
+   ``[serve-dense]``: full-width gemma-7b, granite-3-8b and qwen2.5-14b at
+   8/8, and qwen2.5-14b at 4/4, through ``serve_engine`` on the slice-1
+   trace with every gate of slice 1, each run's peak memory and a decode
+   profile; ``[serve-legacy-dense]``: full-width qwen2.5-14b through the
+   legacy ``serve`` (ring KV cache, int8 weights and KV, 4 prompts of 32, 16
+   new tokens; ``qmm`` 7 × L a prefill and a step, ``paged_decode_attn``
+   0), its prefill logits bit-equal to the paged engine's prefill on the
+   same prompts; ``[check dense]``: the three reduced models at f32 (qwen's
+   q/k/v biases nonzero), 8 and 4 bits, engine and legacy loop on the card
+   against the CPU's plain path;
+11. every plane the paths draw on the card takes the threefry kernel: a
    phase fails if ``prng`` made an int64 hash on the card in it (its
    counter, set to 0 just before each phase but the kernels'), and the main
    paths' plane launches are counted by (output, keys, size) for the
    ``kernels`` line; ``quant_adamw`` pass 2 and ``ds_quant`` run their keyed
    entries on the paths (their rand entries 0 launches);
-11. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
+12. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -219,9 +233,11 @@ QMM_SHAPES = [(4, 2048, 2048), (4, 2048, 256), (4, 2048, 16384),
 QMM_TOL = 1e-5                # rel to max|plain|: f32 dequant, f32 accumulation order
 ATTN_TOL = 1e-4               # abs: both f32 online softmax, summation order only
 ATTN_LENS = [160, 97, 33, 1]
-# B10's check-only rows: the (H, Hkv, D) of configs to come (gemma-7b's MHA,
-# granite-3-8b's GQA) at ATTN_LENS, and long rows at gemma-2b's layout
-ATTN_CHECK_LAYOUTS = [(16, 16, 256), (32, 8, 128)]
+# B10 at slice 8's head layouts (gemma-7b's MHA, granite-3-8b's GQA,
+# qwen2.5-14b's GQA with R = 5 query heads a kv head) at ATTN_LENS, each
+# on [serve-dense]'s path, and check-only long rows at gemma-2b's layout
+ATTN_DENSE_LAYOUTS = {(16, 16, 256): "gemma-7b", (32, 8, 128): "granite-3-8b",
+                      (40, 8, 128): "qwen2.5-14b"}
 ATTN_LONG_LENS = [4096, 1500, 257, 0]
 # ds_quant cases: (R, C, scale axis, s); each is bit-exact at DS_S and its
 # own s, and timed at its own s. On the paths: slice 2's gisette batch
@@ -401,6 +417,20 @@ SSD_STATE_TOL = 1e-4
 # --full --batch 4 --prompt 1024, ROADMAP
 MAMBA_CONSISTENCY_TOL = 2e-2
 MAMBA_CHECK_TOL = 1e-4        # [check] f32, card vs CPU plain path, of the largest |logit|
+# slice 8: the rest of the dense family at full width (random weights, seed
+# 0) through serve_engine on the [serve] trace — (layers, d_model, H, Hkv,
+# D, d_ff, vocab) of each, as src/repro/configs/ has them — at weight/KV
+# bits 8/8, qwen2.5-14b also at 4/4; and qwen2.5-14b through the legacy
+# loop (ring KV cache of prompt + gen rows, attention in plain PyTorch)
+DENSE_WIDTH = {"gemma-2b": (18, 2048, 8, 1, 256, 16384, 256000),
+               "gemma-7b": (28, 3072, 16, 16, 256, 24576, 256000),
+               "granite-3-8b": (40, 4096, 32, 8, 128, 12800, 49155),
+               "qwen2.5-14b": (48, 5120, 40, 8, 128, 13824, 152064)}
+DENSE_ARCHS = ("gemma-7b", "granite-3-8b", "qwen2.5-14b")
+DENSE_RUNS = (("gemma-7b", 8), ("granite-3-8b", 8), ("qwen2.5-14b", 8), ("qwen2.5-14b", 4))
+LEGACY_DENSE = dict(arch="qwen2.5-14b", weight_bits=8, kv_bits=8, batch=4, prompt_len=32,
+                    gen=16)
+DENSE_BIAS_SEED = 5           # [check dense]: nonzero q/k/v biases, N(0, 0.25)
 
 
 def _fail(msg: str, code: int):
@@ -586,6 +616,44 @@ def check_qmm_mamba(dev, flush):
     return rows
 
 
+def _dense_kn(arch: str) -> dict:
+    """(K, N) → projections of ``arch``'s seven matmuls a layer."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    d, q, kv, ff = cfg.d_model, cfg.n_heads * cfg.head_dim, \
+        cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
+    out = {}
+    for k, n, what in ((d, q, "q"), (d, kv, "k, v"), (q, d, "o"), (d, ff, "gate, up"),
+                       (ff, d, "down")):
+        out[(k, n)] = f"{out[(k, n)]}, {what}" if (k, n) in out else what
+    return out
+
+
+def check_qmm_dense(dev, flush):
+    """``qmm`` at every projection of slice 8's models (gemma-7b,
+    granite-3-8b, qwen2.5-14b), int8 and int4, at decode M 4 and at each
+    prompt bucket of the trace [serve-dense] serves them, and at
+    qwen2.5-14b's legacy prefill (M = batch × prompt, int8)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    legacy_m = LEGACY_DENSE["batch"] * LEGACY_DENSE["prompt_len"]
+    rows = []
+    for arch in DENSE_ARCHS:
+        ms = {SERVE["max_slots"]: "decode"}
+        for m in sorted(_prompt_buckets(arch)):
+            ms[m] = f"prefill, bucket {m}"
+        for bits in (8, 4):
+            legacy = arch == LEGACY_DENSE["arch"] and bits == LEGACY_DENSE["weight_bits"]
+            cases = {**ms, legacy_m: "legacy prefill"} if legacy else ms
+            for (k, n), what in _dense_kn(arch).items():
+                for m, role in cases.items():
+                    rows.append(_qmm_row(dev, gen, flush, bits, m, k, n,
+                                         f" ({arch} {what}; {role})"))
+    return rows
+
+
 def _attn_pool(dev, gen, bits, n_pages, page, hkv, d):
     """One layer of a paged KV pool at ``bits`` holding random rows."""
     import torch
@@ -661,14 +729,14 @@ def _attn_row(flush, args, bits, path):
     print(f"[kernel] {label} lens={lens_l}: max_err={err:.3e} (tol {ATTN_TOL:g}), rows "
           f"bit-equal alone; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
           f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
-    return {"name": label, "kv_bits": bits, "path": path, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "rows_bit_equal_alone": True}
+    return {"name": label, "kv_bits": bits, "path": path, "layout": (h, hkv, d),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "rows_bit_equal_alone": True}
 
 
 def check_paged_attn(dev, flush):
-    """B10 at the serving shape (the path's rows), then check-only rows at
-    gemma-7b's and granite-3-8b's head layouts and at long rows."""
+    """B10 at gemma-2b's serving shape and at slice 8's head layouts (the
+    paths' rows: [serve] and [serve-dense]), then check-only long rows."""
     import torch
 
     b, h, hkv, d, page = 4, 8, 1, 256, 16
@@ -684,7 +752,7 @@ def check_paged_attn(dev, flush):
         pool = _attn_pool(dev, gen, bits, n_pages, page, hkv, d)
         rows.append(_attn_row(flush, (q, *pool, bt, lens), bits, True))
     gen = torch.Generator(device=dev).manual_seed(3)
-    for (h, hkv, d), case_lens in [*((lay, ATTN_LENS) for lay in ATTN_CHECK_LAYOUTS),
+    for (h, hkv, d), case_lens in [*((lay, ATTN_LENS) for lay in ATTN_DENSE_LAYOUTS),
                                    ((8, 1, 256), ATTN_LONG_LENS)]:
         maxp = -(-max(case_lens) // page) + 1
         n_pages = b * maxp + 1
@@ -694,33 +762,45 @@ def check_paged_attn(dev, flush):
         lens = torch.tensor(case_lens, dtype=torch.int32, device=dev)
         for bits in (0, 8, 4):
             pool = _attn_pool(dev, gen, bits, n_pages, page, hkv, d)
-            rows.append(_attn_row(flush, (q, *pool, bt, lens), bits, False))
+            rows.append(_attn_row(flush, (q, *pool, bt, lens), bits,
+                                  (h, hkv, d) in ATTN_DENSE_LAYOUTS))
     return rows
 
 
-def serve(bits: int, dev, checked):
-    """Drive the main path once; fail if ``qmm`` launched at a shape outside
-    ``checked`` (the checked rows' keys); returns (launch counts, qmm shape
-    counts, summary)."""
+def _width(cfg) -> tuple:
+    return (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size)
+
+
+def serve(bits: int, dev, checked, arch: str = "gemma-2b", tag: str = "serve"):
+    """Drive the main path once: ``serve_engine`` on full-width ``arch`` at
+    weight/KV bits ``bits`` on the slice-1 trace; fail if ``qmm`` launched
+    at a shape outside ``checked`` (the checked rows' keys); returns
+    (launch counts, qmm shape counts, summary). The summary's peak is the
+    card's allocation peak over the call (weights drawn in bf16 and
+    quantized included) above what was allocated before it."""
     import torch
     from repro_torch.kernels import paged_attn as PA
     from repro_torch.kernels import qmm as Q
     from repro_torch.launch.serve import serve_engine
 
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     Q.reset_counters()
     PA.launches = 0
     t0 = time.perf_counter()
     engine, results = serve_engine(
-        "gemma-2b", reduced=False, weight_bits=bits, kv_bits=bits, n_requests=8,
-        max_slots=4, page_size=16, max_prompt=128, max_new=32, device=dev)
+        arch, reduced=False, weight_bits=bits, kv_bits=bits, device=dev, **SERVE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
     launches = {"qmm": Q.launches, "paged_decode_attn": PA.launches}
     shapes = dict(Q.shape_launches)
-    qmm_cores = _core_gate(f"[serve] {bits}/{bits}", Q, checked)
+    qmm_cores = _core_gate(f"[{tag}] {arch} {bits}/{bits}", Q, checked)
     cfg, st = engine.cfg, engine.stats
-    if cfg.n_layers != 18 or cfg.d_model != 2048 or cfg.vocab_size != 256000:
-        raise AssertionError(f"not full-width gemma-2b: {cfg}")
+    if _width(cfg) != DENSE_WIDTH[arch]:
+        raise AssertionError(f"not full-width {arch}: {cfg}")
     if len(results) != 8 or st["finished"] != 8:
         raise AssertionError(f"{len(results)} of 8 requests finished")
     engine.allocator.check_leaks(0)
@@ -748,16 +828,18 @@ def serve(bits: int, dev, checked):
                "mean_decode_step_ms": 1e3 * statistics.mean(engine.decode_times),
                "kv_pool_bytes": engine.kv_pool_nbytes(),
                "weight_bytes": engine.weight_nbytes(), "wall_s": wall,
+               "peak_bytes": peak, "arch": arch,
+               "attn_layout": (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
                "launches": launches, "qmm_launches_by_core": qmm_cores,
                "launches_per_decode_step": {"qmm": per_step_qmm,
                                             "paged_decode_attn": cfg.n_layers}}
-    print(f"[serve] gemma-2b full width, weight/kv bits {bits}/{bits}: "
+    print(f"[{tag}] {arch} full width, weight/kv bits {bits}/{bits}: "
           f"{len(results)} requests finished, {n_gen} tokens generated in "
           f"{st['decode_steps']} decode steps (+{st['prefill_tokens']} prefill tokens); "
           f"steady-state decode {summary['decode_tokens_per_s']:.1f} tok/s "
           f"({summary['mean_decode_step_ms']:.2f} ms/step); KV pool "
           f"{summary['kv_pool_bytes']:,} bytes; weights {summary['weight_bytes']:,} bytes; "
-          f"launches qmm={launches['qmm']} {qmm_cores} "
+          f"peak {peak / 2**30:.2f} GiB; launches qmm={launches['qmm']} {qmm_cores} "
           f"paged_decode_attn={launches['paged_decode_attn']}", flush=True)
     summary["profile"] = profile_decode(engine)
     del engine
@@ -1808,14 +1890,15 @@ def agree_train(dev):
             "free_run_master_update_rel_l2": free_l2, "per_step": per_step}
 
 
-def _prompt_buckets() -> collections.Counter:
-    """Prefill M of the served trace: its prompts' lengths rounded up to
-    whole pages (``ServeEngine._bucket``), with how many prompts each."""
+def _prompt_buckets(arch: str = "gemma-2b") -> collections.Counter:
+    """Prefill M of the trace served to ``arch`` (its prompt tokens are
+    drawn over its vocab): its prompts' lengths rounded up to whole pages
+    (``ServeEngine._bucket``), with how many prompts each."""
     from repro_torch import configs
     from repro_torch.launch.serve import make_trace
 
     page = SERVE["page_size"]
-    trace = make_trace(SERVE["n_requests"], configs.get_config("gemma-2b").vocab_size,
+    trace = make_trace(SERVE["n_requests"], configs.get_config(arch).vocab_size,
                        max_new=SERVE["max_new"], max_prompt=SERVE["max_prompt"], seed=0)
     return collections.Counter(-(-len(r.prompt) // page) * page for r in trace)
 
@@ -3599,6 +3682,177 @@ def agree_mamba(dev):
     return out
 
 
+def serve_dense(dev, checked):
+    """Slice 8's main path: ``serve_engine`` on full-width gemma-7b,
+    granite-3-8b and qwen2.5-14b (random weights, seed 0) on the slice-1
+    trace at ``DENSE_RUNS``' bits, with every gate of ``[serve]`` (via
+    :func:`serve`): full width, 8 of 8 requests finished, no page leaked,
+    tokens in the vocab, ``qmm`` 7 × L × (decode steps + admitted) launches
+    at checked shapes on plan's core, ``paged_decode_attn`` L × decode
+    steps; each run's peak memory and a decode profile."""
+    return {f"{arch} {bits}/{bits}": serve(bits, dev, checked, arch, "serve-dense")
+            for arch, bits in DENSE_RUNS}
+
+
+def serve_legacy_dense(dev, checked):
+    """The legacy loop on a dense model: ``launch.serve.serve`` on full-width
+    qwen2.5-14b at ``LEGACY_DENSE`` (ring KV cache of prompt + gen rows),
+    the ``qmm`` and ``paged_decode_attn`` counters set to 0 just before and
+    read just after: ``qmm`` 7 × L per prefill and per decode step (the
+    warm-up step included) at checked shapes, ``paged_decode_attn`` 0 (the
+    ring path attends in plain PyTorch, as the reference). Then, on the same
+    weights rebuilt from the seed, the ring path's prefill (``T.prefill_state``,
+    what serve() ran) against the paged engine's (``T.prefill`` at kv 0) on
+    the same prompts — one forward, so the logits must be bit-equal — and
+    against serve()'s first generated tokens; a profile of 5 decode steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import tree_nbytes
+
+    kw = dict(LEGACY_DENSE)
+    arch = kw.pop("arch")
+    bsz, plen, gen = kw["batch"], kw["prompt_len"], kw["gen"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_counters()
+    PA.launches = 0
+    t0 = time.perf_counter()
+    tokens, tps = S.serve(arch, reduced=False, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"qmm": Q.launches, "paged_decode_attn": PA.launches}
+    cores = _core_gate(f"[serve-legacy-dense] {arch}", Q, checked)
+    shapes = dict(Q.shape_launches)
+    plan = S._resolve_plan(None, kw["kv_bits"], kw["weight_bits"])
+    cfg, params = S._build(arch, reduced=False, plan=plan, seed=0, device=dev)
+    L = cfg.n_layers
+    if _width(cfg) != DENSE_WIDTH[arch]:
+        raise AssertionError(f"not full-width {arch}: {cfg}")
+    if tokens.shape != (bsz, plen + gen) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"[serve-legacy-dense] tokens {tokens.shape}, range "
+                             f"{tokens.min()}..{tokens.max()}")
+    want = {"qmm": 7 * L * (gen + 1), "paged_decode_attn": 0}
+    if launches != want:
+        raise AssertionError(f"[serve-legacy-dense] launches {launches}, expected {want}")
+    prompts = prng.randint(prng.fold_in(prng.PRNGKey(0), 1), (bsz, plen), 0,
+                           cfg.vocab_size, device=dev)
+    if not np.array_equal(prompts.cpu().numpy(), tokens[:, :plen]):
+        raise AssertionError("[serve-legacy-dense] the rebuilt prompts differ from serve()'s")
+    Q.reset_counters()
+    ring, state = make_prefill_step(cfg, pad_to=plen + gen)(params, {"tokens": prompts})
+    engine_cfg = dataclasses.replace(cfg, precision=dataclasses.replace(plan, kv_bits=0))
+    paged, _ = T.prefill(params, prompts, engine_cfg)
+    same = bool(torch.equal(ring, paged))
+    first = torch.argmax(ring, -1).cpu().numpy()
+    if not same or not np.array_equal(first, tokens[:, plen]):
+        raise AssertionError(f"[serve-legacy-dense] ring prefill logits bit-equal to the "
+                             f"engine's: {same}; first tokens {first} vs serve()'s "
+                             f"{tokens[:, plen]}")
+    step = make_serve_step(cfg)
+    prof = profile_steps(step, params, state, torch.as_tensor(first, device=dev)
+                         .to(torch.int32)[:, None])
+    _core_gate("[serve-legacy-dense] checks", Q, checked)
+    run = {"arch": arch, **kw, "tokens_shape": list(tokens.shape),
+           "decode_ms_per_step": 1e3 * bsz / tps, "decode_tokens_per_s": tps,
+           "peak_bytes": peak, "wall_s": wall, "launches": launches,
+           "qmm_launches_by_core": cores,
+           "qmm_shape_launches": [[*k, v] for k, v in shapes.items()],
+           "cache_bytes_per_sequence": tree_nbytes(state.layers._asdict()) // bsz,
+           "weight_bytes": tree_nbytes(params), "prefill_logits_bit_equal": same,
+           "decode_profile": prof}
+    print(f"[serve-legacy-dense] {arch} full width, weight/kv bits {kw['weight_bits']}/"
+          f"{kw['kv_bits']}: tokens {tuple(tokens.shape)} in vocab; decode "
+          f"{run['decode_ms_per_step']:.2f} ms/step, {tps:.1f} tok/s; peak "
+          f"{peak / 2**30:.2f} GiB over the serve() call; ring cache "
+          f"{run['cache_bytes_per_sequence']:,} bytes/sequence; launches {launches} "
+          f"{cores}; ring prefill logits bit-equal to the engine's prefill: {same}",
+          flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    return run
+
+
+def _biased(tree, seed: int = DENSE_BIAS_SEED):
+    """``tree`` with every bias leaf ``b`` drawn N(0, 0.25) from a numpy seed
+    (the init's zeros would hide a bias never added)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def go(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: torch.from_numpy(rng.normal(0, 0.5, tuple(v.shape)).astype(np.float32))
+                .to(v.dtype) if k == "b" else go(v) for k, v in sorted(node.items())}
+    return go(tree)
+
+
+def agree_dense(dev):
+    """Slice 8's reduced models at f32 (qwen2.5-14b with nonzero q/k/v
+    biases) at weight/KV bits 8 and 4, on the card (kernels) against the
+    CPU's plain path from the same weights: the paged engine's first
+    generated token of every request must agree, and the legacy loop's
+    greedy tokens (ring cache, prefill + 8 decode steps) must be equal."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for arch in DENSE_ARCHS:
+        for bits in (8, 4):
+            plan = PrecisionPlan(model_bits=bits, kv_bits=bits, model_storage="int")
+            cfg = configs.get_reduced(arch, dtype=torch.float32, precision=plan)
+            params = quantize_param_tree(_biased(T.init_params(cfg, seed=0, device="cpu")),
+                                         bits=bits)
+            prompt = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (4, 24)))
+            res, legacy = {}, {}
+            for where in (dev, "cpu"):
+                eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                                  backend="cuda", device=where)
+                res[str(where)] = eng.run(make_trace(8, cfg.vocab_size, max_new=16,
+                                                     max_prompt=32, seed=0))
+                p = _tree_to(params, where)
+                with registry.using("cuda"):      # on the CPU: the kernels' plain versions
+                    logits, state = make_prefill_step(cfg, pad_to=33)(
+                        p, {"tokens": prompt.to(where)})
+                    toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+                    step = make_serve_step(cfg)
+                    for _ in range(8):
+                        _, nxt, state = step(p, state, toks[-1])
+                        toks.append(nxt[:, None])
+                legacy[str(where)] = torch.cat(toks, 1).cpu()
+            on_card, on_cpu = res[str(dev)], res["cpu"]
+            first = sum(int(on_card[r].tokens[on_card[r].prompt_len]
+                            == on_cpu[r].tokens[on_cpu[r].prompt_len]) for r in on_cpu)
+            same = sum(int((on_card[r].tokens == on_cpu[r].tokens).all()) for r in on_cpu)
+            legacy_same = bool(torch.equal(legacy[str(dev)], legacy["cpu"]))
+            print(f"[check] reduced {arch} f32 int{bits}: card kernels vs CPU plain path — "
+                  f"engine first tokens equal {first}/8, whole sequences equal {same}/8; "
+                  f"legacy loop tokens equal {legacy_same}", flush=True)
+            if first != 8 or not legacy_same:
+                raise AssertionError(f"[check dense] reduced {arch} int{bits}: first tokens "
+                                     f"{first}/8, legacy tokens equal {legacy_same}")
+            out[f"{arch} {bits}"] = {"first_tokens_equal": first, "sequences_equal": same,
+                                     "legacy_tokens_equal": legacy_same}
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -3688,6 +3942,7 @@ def main():
     unembed_rows = phase("kernel qmm_t unembed", check_qmm_t_unembed, dev, flush)
     ssd_rows = phase("kernel ssd_chunk_scan", check_ssd, dev, flush)
     mamba_qmm_rows = phase("kernel qmm mamba2", check_qmm_mamba, dev, flush)
+    dense_qmm_rows = phase("kernel qmm dense", check_qmm_dense, dev, flush)
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -3720,6 +3975,12 @@ def main():
     embed_small = phase("check embed and act-quant", agree_embed_act, dev)
     mamba = phase("serve-mamba", serve_mamba, dev, ssd_rows, mamba_qmm_rows)
     mamba_small = phase("check mamba", agree_mamba, dev)
+    # slice 8: every qmm launch of [serve-dense] and [serve-legacy-dense]
+    # must be at a shape checked for it
+    dense_checked = {r["key"] for r in dense_qmm_rows}
+    dense = phase("serve-dense", serve_dense, dev, dense_checked)
+    legacy_dense = phase("serve-legacy-dense", serve_legacy_dense, dev, dense_checked)
+    dense_small = phase("check dense", agree_dense, dev)
 
     # threefry launches on the main paths: the phases' reads (tf_path), and
     # the runs whose counters are reset again before a later run of the
@@ -3754,7 +4015,16 @@ def main():
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
     for r in attn_rows:
-        bits, path = r.pop("kv_bits"), r.pop("path")
+        bits, path, layout = r.pop("kv_bits"), r.pop("path"), r.pop("layout")
+        if layout in ATTN_DENSE_LAYOUTS:
+            # [serve-dense]'s runs of the model with this head layout at kv bits
+            r["launches"] = sum(run[0]["paged_decode_attn"] for run in dense.values()
+                                if tuple(run[2]["attn_layout"]) == layout
+                                and run[2]["kv_bits"] == bits)
+            kernels.append({"name": r.pop("name"), "route": "cuda",
+                            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+                            "replaces": "src/repro/kernels/paged_attn.py:195", **r})
+            continue
         # kv 8: [serve] at 8/8 and [serve-optimal]; the check-only rows 0
         r["launches"] = runs[bits][0]["paged_decode_attn"] if path and bits in runs else 0
         if path and bits == 8:
@@ -3867,6 +4137,17 @@ def main():
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
+    # qmm at slice 8's shapes: [serve-dense]'s four runs and
+    # [serve-legacy-dense]'s serve() call, by (packed, M, K, N)
+    dense_path = collections.Counter()
+    for run in dense.values():
+        dense_path.update(run[1])
+    dense_path.update({tuple(k[:-1]): k[-1] for k in legacy_dense["qmm_shape_launches"]})
+    for r in dense_qmm_rows:
+        r["launches"] = dense_path.get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm.cu",
+                        "replaces": "src/repro/kernels/qmm.py:158", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "core")
     extra_keys = ("matmul_ms", "plain_code_share", "exact_code_share", "before_ms",
@@ -3888,6 +4169,8 @@ def main():
               "kernel_extra": extra, "act_quant": act, "serve_embed": embed_run,
               "embed_act_agreement": embed_small, "serve_mamba": mamba,
               "mamba_agreement": mamba_small, "ssd_errors": ssd_errors,
+              "serve_dense": {k: v[2] for k, v in dense.items()},
+              "serve_legacy_dense": legacy_dense, "dense_agreement": dense_small,
               "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],
               "int32_ops_per_s": INT32_OPS, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

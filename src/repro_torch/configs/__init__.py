@@ -1,6 +1,7 @@
 """Architecture registry of the port. Slice 1 ports gemma-2b, slice 7
-mamba2-780m; the other eight architectures of ``repro.configs`` wait for
-ROADMAP A6."""
+mamba2-780m, slice 8 the rest of the dense family (gemma-7b, granite-3-8b,
+qwen2.5-14b); the other five architectures of ``repro.configs`` (hybrid,
+MoE, VLM, audio) wait for ROADMAP A6."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +9,7 @@ import importlib
 
 from repro_torch.models.transformer import ModelConfig
 
-ARCH_IDS = ("gemma-2b", "mamba2-780m")
+ARCH_IDS = ("gemma-2b", "gemma-7b", "granite-3-8b", "qwen2.5-14b", "mamba2-780m")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
 

@@ -28,10 +28,15 @@ token-identical to vanilla decode):
       --device cpu --requests 4 --weight-bits 8 --kv-bits 8 --optimal-levels
 
 Legacy single-shot mode (``serve``: one fixed random prompt batch, prefill,
-then greedy decode) serves the ssm family, which the paged engine does not
-take — mamba2-780m's prefill runs the SSD kernel, its decode the O(1)
-recurrence on the (conv, ssm) cache:
+then greedy decode) serves both families. A dense model decodes on a
+ring-buffer KV cache of prompt + gen rows, attending in plain PyTorch as the
+reference does; mamba2-780m's prefill runs the SSD kernel, its decode the
+O(1) recurrence on the (conv, ssm) cache, which the paged engine does not
+take:
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
+      --device cpu --legacy --kv-bits 8 --weight-bits 8 --batch 2 \
+      --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --device cpu --legacy --batch 2 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
@@ -96,19 +101,15 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     Returns (tokens (B, prompt+gen) numpy int32, steady-state tokens/s over
     the ``gen − 1`` timed steps; NaN when ``gen`` is 1).
 
-    The ssm family only: the dense family's ring-buffer decode waits for
-    ROADMAP A6 (``serve_engine`` serves it)."""
-    family = (configs.get_reduced if reduced else configs.get_config)(arch).family
-    if family != "ssm":
-        raise NotImplementedError(
-            f"legacy serve of the {family!r} family needs the ring-buffer "
-            "decode_step (ROADMAP A6); use serve_engine")
+    A dense model's ring cache holds ``prompt_len + gen`` rows, as the
+    reference's."""
     dev = resolve_device(device)
     plan = _resolve_plan(plan, kv_bits, weight_bits, optimal_levels)
     cfg, params = _build(arch, reduced=reduced, plan=plan, seed=seed, device=dev)
     prompts = prng.randint(prng.fold_in(prng.PRNGKey(seed), 1), (batch, prompt_len),
                            0, cfg.vocab_size, device=dev)
-    logits, state = make_prefill_step(cfg)(params, {"tokens": prompts})
+    logits, state = make_prefill_step(cfg, pad_to=prompt_len + gen)(
+        params, {"tokens": prompts})
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     step_fn = make_serve_step(cfg)
     step_fn(params, state, next_tok)                    # warm-up, thrown away
@@ -251,7 +252,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     # legacy single-shot mode
     ap.add_argument("--legacy", action="store_true",
-                    help="fixed-batch greedy loop on the recurrent cache (ssm)")
+                    help="fixed-batch greedy loop (ring KV cache, or the ssm "
+                         "recurrent cache)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

@@ -8,10 +8,11 @@ import torch
 from repro_torch.models import transformer as T
 
 
-def make_prefill_step(cfg: T.ModelConfig):
-    """``prefill_step(params, {"tokens": (B, S)}) → (last logits, DecodeState)``."""
+def make_prefill_step(cfg: T.ModelConfig, pad_to: int = 0):
+    """``prefill_step(params, {"tokens": (B, S)}) → (last logits, DecodeState)``;
+    the dense family's ring cache gets ``max(S, pad_to)`` rows."""
     def prefill_step(params, batch):
-        return T.prefill(params, batch["tokens"], cfg)
+        return T.prefill_state(params, batch["tokens"], cfg, pad_to=pad_to)
     return prefill_step
 
 

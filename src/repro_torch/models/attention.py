@@ -1,12 +1,17 @@
 """Attention (port of ``repro.models.attention``): GQA/MQA causal prefill
-attention over query blocks, the single-token decode projections, and the
-masked one-shot decode softmax of the ``ref`` backend.
+attention over query blocks (q, k and v may carry a bias), the
+single-token decode projections, the masked one-shot decode softmax of the
+``ref`` backend, and the ring-buffer KV cache of the legacy serve loop
+(``KVCache``, :func:`init_kv_cache`, :func:`update_kv_cache`,
+:func:`prefill_cache_from_kv`, :func:`attention_decode_step`), whose rows
+are quantized as the paged pool's (``serve.pages.quant_rows``).
 
 Sliding windows and cross-attention wait for ROADMAP A6.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -16,13 +21,13 @@ NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
 
 
 def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
-                   head_dim: int, *, lead=(), dtype=torch.bfloat16,
-                   device="cpu") -> Params:
+                   head_dim: int, *, qkv_bias: bool = False, lead=(),
+                   dtype=torch.bfloat16, device="cpu") -> Params:
     kw = dict(lead=lead, dtype=dtype, device=device)
     return {
-        "q": init_dense(gen, d_model, n_heads * head_dim, **kw),
-        "k": init_dense(gen, d_model, n_kv_heads * head_dim, **kw),
-        "v": init_dense(gen, d_model, n_kv_heads * head_dim, **kw),
+        "q": init_dense(gen, d_model, n_heads * head_dim, bias=qkv_bias, **kw),
+        "k": init_dense(gen, d_model, n_kv_heads * head_dim, bias=qkv_bias, **kw),
+        "v": init_dense(gen, d_model, n_kv_heads * head_dim, bias=qkv_bias, **kw),
         "o": init_dense(gen, n_heads * head_dim, d_model,
                         scale=(n_heads * head_dim) ** -0.5, **kw),
     }
@@ -126,3 +131,117 @@ def decode_qkv(p: Params, x: torch.Tensor, spec: AttnSpec, pos: torch.Tensor):
     q = apply_rope(q, pos, spec.rope_theta)
     k = apply_rope(k, pos, spec.rope_theta)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# The ring-buffer KV cache of the legacy serve loop
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Ring-buffer KV cache. ``k``/``v``: (B, Smax, Hkv, D) in the compute
+    dtype; int8 codes when quantized (scales set); uint8 = packed int4, two
+    offset-binary nibbles a byte, (B, Smax, Hkv, D/2). ``length``: filled
+    entries (B,) int32, the write cursor."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+    k_scale: torch.Tensor | None = None   # (B, Smax, Hkv, 1) f32 when quantized
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def materialize(self):
+        """(k, v) to attend over: the raw rows, or the codes decoded to bf16
+        whatever the compute dtype (as the reference)."""
+        if not self.quantized:
+            return self.k, self.v
+        from repro_torch.quant.qtensor import unpack_int4
+
+        if self.k.dtype == torch.uint8:
+            kc, vc = unpack_int4(self.k), unpack_int4(self.v)
+        else:
+            kc, vc = self.k.to(torch.float32), self.v.to(torch.float32)
+        return ((kc * self.k_scale).to(torch.bfloat16),
+                (vc * self.v_scale).to(torch.bfloat16))
+
+
+def init_kv_cache(batch: int, smax: int, n_kv: int, head_dim: int, *,
+                  kv_bits: int = 0, dtype=torch.bfloat16, device="cpu") -> KVCache:
+    """An empty cache of ``smax`` rows: zero codes, unit scales."""
+    shape = (batch, smax, n_kv)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if not kv_bits:
+        return KVCache(torch.zeros((*shape, head_dim), dtype=dtype, device=device),
+                       torch.zeros((*shape, head_dim), dtype=dtype, device=device), length)
+    d, dt = (head_dim // 2, torch.uint8) if kv_bits == 4 else (head_dim, torch.int8)
+    return KVCache(torch.zeros((*shape, d), dtype=dt, device=device),
+                   torch.zeros((*shape, d), dtype=dt, device=device), length,
+                   torch.ones((*shape, 1), dtype=torch.float32, device=device),
+                   torch.ones((*shape, 1), dtype=torch.float32, device=device))
+
+
+def _quant_rows(x: torch.Tensor, like: torch.Tensor):
+    """Rows (…, Hkv, D) in the format of cache plane ``like``: the paged
+    pool's per-(token, head) nearest quantizer (``serve.pages.quant_rows``),
+    so a row has the same codes in either cache."""
+    from repro_torch.kernels.ops import kv_bits_of
+    from repro_torch.serve.pages import quant_rows
+
+    return quant_rows(x, kv_bits_of(like), like.dtype)
+
+
+def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
+    """Append one token's K/V (B, 1, Hkv, D) at each sequence's cursor
+    ``min(length, Smax − 1)``. The cache is only read: the new cache's
+    planes are copies, so a discarded step leaves the old one as it was."""
+    b, smax = cache.k.shape[:2]
+    rows = torch.arange(b, device=cache.k.device)
+    cursor = torch.clamp(cache.length.to(torch.int64), max=smax - 1)
+
+    def write(buf, new):
+        out = buf.clone()
+        out[rows, cursor] = new[:, 0]
+        return out
+
+    kc, ks = _quant_rows(k_new, cache.k)
+    vc, vs = _quant_rows(v_new, cache.v)
+    if cache.quantized:
+        return KVCache(write(cache.k, kc), write(cache.v, vc), cache.length + 1,
+                       write(cache.k_scale, ks), write(cache.v_scale, vs))
+    return KVCache(write(cache.k, kc), write(cache.v, vc), cache.length + 1)
+
+
+def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, *, kv_bits: int = 0,
+                          pad_to: int = 0) -> KVCache:
+    """A prompt's post-RoPE K/V (B, S, Hkv, D) as a decode cache: ``pad_to``
+    reserves rows past the prompt for decode to append to (zero rows, which
+    quantize to zero codes and unit scales), and ``kv_bits`` quantizes
+    every row as :func:`update_kv_cache` does."""
+    from repro_torch.serve.pages import quant_rows
+
+    b, s = k.shape[:2]
+    length = torch.full((b,), s, dtype=torch.int32, device=k.device)
+    if pad_to > s:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_to - s))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_to - s))
+    kc, ks = quant_rows(k, kv_bits, k.dtype)
+    vc, vs = quant_rows(v, kv_bits, v.dtype)
+    return KVCache(kc, vc, length, ks, vs)
+
+
+def attention_decode_step(p: Params, x: torch.Tensor, cache: KVCache,
+                          spec: AttnSpec) -> tuple[torch.Tensor, KVCache]:
+    """x (B, 1, d): project at position ``length``, append to the cache,
+    attend over its filled rows. Returns (out (B, 1, d), new cache)."""
+    if spec.window:
+        raise NotImplementedError("sliding-window ring caches (ROADMAP A6)")
+    b = x.shape[0]
+    q, k, v = decode_qkv(p, x, spec, cache.length[:, None])
+    cache = update_kv_cache(cache, k, v)
+    kc, vc = cache.materialize()
+    kv_len = torch.clamp(cache.length, max=kc.shape[1])
+    out = decode_attention(q, kc, vc, spec, kv_len=kv_len)
+    return dense(p["o"], out.reshape(b, 1, spec.n_heads * spec.head_dim)), cache

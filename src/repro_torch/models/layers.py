@@ -48,11 +48,15 @@ def _normal(gen, shape, device):
 
 
 def init_dense(gen, d_in: int, d_out: int, *, lead=(), dtype=torch.bfloat16,
-               device="cpu", scale: float | None = None) -> Params:
-    """w ~ N(0, 1)·scale (default d_in^-0.5), drawn in f32 then cast."""
+               device="cpu", scale: float | None = None, bias: bool = False) -> Params:
+    """w ~ N(0, 1)·scale (default d_in^-0.5), drawn in f32 then cast;
+    ``bias`` adds ``b``, zeros of shape (*lead, d_out) in ``dtype``."""
     scale = scale if scale is not None else d_in ** -0.5
     w = _normal(gen, (*lead, d_in, d_out), device) * scale
-    return {"w": w.to(dtype)}
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+    return p
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,16 @@
 """Model assembly for the dense and ssm families (port of
 ``repro.models.transformer``): ``ModelConfig``, ``init_params``, the
-training ``forward`` and ``loss_fn``, ``prefill``, the single-token decode
-block of the dense family (the paged engine's), and the ssm family's
-``DecodeState``, ``init_decode_state`` and ``decode_step`` (the O(1)
-recurrent decode of the legacy serve loop).
+training ``forward`` and ``loss_fn``, ``prefill`` (the paged engine's: raw
+K/V out), the single-token decode block of the dense family, and the legacy
+serve loop's ``DecodeState``, ``prefill_state``, ``init_decode_state`` and
+``decode_step``: the dense family's ring-buffer KV cache, the ssm family's
+O(1) recurrent (conv, ssm) cache.
 
 ``lax.scan`` over stacked layers becomes a Python loop over per-layer views
 of the same stacked tensors; the training forward rematerializes each layer
 in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
-reference's ``jax.checkpoint`` does. MoE, hybrid and VLM families, and the
-dense family's ring-buffer ``decode_step``, wait for ROADMAP A6.
+reference's ``jax.checkpoint`` does. MoE, hybrid, VLM and audio families,
+and sliding windows, wait for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -73,10 +74,10 @@ class ModelConfig:
 
 
 def _check_family(cfg: ModelConfig):
-    """The ported families: dense (tied embeddings, no window, no qkv bias)
-    and ssm (tied embeddings). An ssm config with ``kv_bits`` raises: it has
-    no KV cache to quantize (the reference ignores the request; ROADMAP
-    C18)."""
+    """The ported families: dense (tied embeddings, no window; q, k and v
+    may carry a bias) and ssm (tied embeddings). An ssm config with
+    ``kv_bits`` raises: it has no KV cache to quantize (the reference
+    ignores the request; ROADMAP C18)."""
     if cfg.family == "ssm" and cfg.tie_embeddings:
         if cfg.precision.kv_bits:
             raise ValueError(
@@ -84,10 +85,10 @@ def _check_family(cfg: ModelConfig):
                 "which has no KV cache to quantize (the reference ignores it; "
                 "ROADMAP C18)")
         return
-    if cfg.family != "dense" or cfg.window or cfg.qkv_bias or not cfg.tie_embeddings:
+    if cfg.family != "dense" or cfg.window or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with tied embeddings, no "
-            "window and no qkv bias, and the ssm family, are ported (ROADMAP A6)")
+            f"{cfg.name}: only the dense family with tied embeddings and no "
+            "window, and the ssm family, are ported (ROADMAP A6)")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
@@ -117,7 +118,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
         "layers": {
             "ln1": init_rmsnorm(cfg.d_model, **kw),
             "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads,
-                                        cfg.n_kv_heads, cfg.head_dim, **kw),
+                                        cfg.n_kv_heads, cfg.head_dim,
+                                        qkv_bias=cfg.qkv_bias, **kw),
             "ln2": init_rmsnorm(cfg.d_model, **kw),
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
         },
@@ -203,7 +205,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     (default the last position), (k, v)) with the raw post-RoPE K/V of every
     layer stacked as (L, B, S, Hkv, D) — what the paged pool quantizes.
     The serving engine right-pads prompts to a page multiple; causality
-    keeps positions ≤ last_pos unaffected by the padding.
+    keeps positions ≤ last_pos unaffected by the padding. The legacy loop's
+    ring cache comes from :func:`prefill_state`.
 
     The ssm family returns (logits, :class:`DecodeState`) instead: every
     layer's ``MambaCache`` stacked (conv (L, B, K−1, conv_dim), ssm (L, B,
@@ -214,7 +217,14 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.precision.kv_bits:
         raise NotImplementedError(
             "prefill fills raw K/V only (kv_bits=0); the paged pool "
-            "quantizes them (ring-cache prefill: ROADMAP A6)")
+            "quantizes them (the ring cache's prefill is prefill_state)")
+    logits, ks, vs = _prefill_dense(params, tokens, cfg, last_pos, layers)
+    return logits, (torch.stack(ks), torch.stack(vs))
+
+
+def _prefill_dense(params, tokens, cfg, last_pos, layers):
+    """The dense prompt forward: (logits at ``last_pos``, every layer's
+    post-RoPE K, every layer's V)."""
     layers = layers if layers is not None else layer_views(params, cfg)
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
     ks, vs = [], []
@@ -226,8 +236,26 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         ks.append(k)
         vs.append(v)
     pos = x.shape[1] - 1 if last_pos is None else int(last_pos)
-    logits = final_logits(params, cfg, x[:, pos:pos + 1])[:, 0]
-    return logits, (torch.stack(ks), torch.stack(vs))
+    return final_logits(params, cfg, x[:, pos:pos + 1])[:, 0], ks, vs
+
+
+def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  pad_to: int = 0, last_pos: int | None = None,
+                  layers: list | None = None):
+    """Prefill a prompt (B, S) for the legacy serve loop: (logits (B, V) at
+    ``last_pos``, :class:`DecodeState`) as the reference's ``prefill``
+    returns them. The dense family's state holds one ring-buffer
+    :class:`~repro_torch.models.attention.KVCache` of stacked (L, …)
+    planes, sized ``max(S, pad_to)`` rows and quantized at
+    ``cfg.precision.kv_bits``; the ssm family's is :func:`prefill`'s
+    (``pad_to`` unused)."""
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        return _prefill_ssm(params, tokens, cfg, last_pos, layers)
+    logits, ks, vs = _prefill_dense(params, tokens, cfg, last_pos, layers)
+    caches = [attn.prefill_cache_from_kv(k, v, kv_bits=cfg.precision.kv_bits,
+                                         pad_to=pad_to) for k, v in zip(ks, vs)]
+    return logits, DecodeState(_stack_kv(caches), step=tokens.shape[1])
 
 
 def decode_layer_block(cfg: ModelConfig, layer: Params, h: torch.Tensor,
@@ -243,8 +271,8 @@ def decode_layer_block(cfg: ModelConfig, layer: Params, h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class DecodeState(typing.NamedTuple):
-    """Per-layer caches + step counter. The ssm family's ``layers`` is one
-    ``MambaCache`` of stacked (L, …) tensors."""
+    """Per-layer caches + step counter. ``layers`` is one cache of stacked
+    (L, …) tensors: a ``KVCache`` (dense) or a ``MambaCache`` (ssm)."""
 
     layers: Any
     shared: Any = None
@@ -255,6 +283,15 @@ class DecodeState(typing.NamedTuple):
 def _stack_caches(caches) -> ssm_mod.MambaCache:
     return ssm_mod.MambaCache(conv=torch.stack([c.conv for c in caches]),
                               ssm=torch.stack([c.ssm for c in caches]))
+
+
+def _stack_kv(caches) -> attn.KVCache:
+    return attn.KVCache(*[None if t[0] is None else torch.stack(t)
+                          for t in zip(*caches)])
+
+
+def _kv_layer(cache: attn.KVCache, i: int) -> attn.KVCache:
+    return attn.KVCache(*[None if t is None else t[i] for t in cache])
 
 
 def _prefill_ssm(params, tokens, cfg, last_pos, layers):
@@ -274,18 +311,19 @@ def _prefill_ssm(params, tokens, cfg, last_pos, layers):
 def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
                       device=None) -> DecodeState:
     """Zero caches for ``batch`` sequences on ``device`` (default ``cuda``).
-    The ssm family's cache is O(1) in the sequence (``smax`` is unused);
-    its conv cache is bf16 whatever the compute dtype, as in the reference.
-    The dense family's ring-buffer cache waits for ROADMAP A6 (the paged
-    engine serves it)."""
+    The dense family's is an empty ring-buffer KV cache of ``smax`` rows a
+    layer at ``cfg.precision.kv_bits``. The ssm family's cache is O(1) in
+    the sequence (``smax`` is unused); its conv cache is bf16 whatever the
+    compute dtype, as in the reference."""
     from repro_torch import resolve_device
 
     _check_family(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            "the dense family's ring-buffer decode state (ROADMAP A6); serve "
-            "it through serve.ServeEngine")
     dev = resolve_device(device)
+    if cfg.family == "dense":
+        one = attn.init_kv_cache(batch, smax, cfg.n_kv_heads, cfg.head_dim,
+                                 kv_bits=cfg.precision.kv_bits, dtype=cfg.dtype,
+                                 device=dev)
+        return DecodeState(_stack_kv([one] * cfg.n_layers), step=0)
     one = ssm_mod.init_mamba_cache(batch, cfg.ssm_spec, device=dev)
     return DecodeState(ssm_mod.MambaCache(
         conv=one.conv.expand(cfg.n_layers, *one.conv.shape).clone(),
@@ -294,16 +332,26 @@ def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
 
 def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
                 cfg: ModelConfig):
-    """One serve step of the ssm family: tokens (B, 1) → (logits (B, 1, V)
+    """One serve step of the legacy loop: tokens (B, 1) → (logits (B, 1, V)
     f32 with the vocab pad masked, new state). ``state`` is only read: the
-    new state's tensors are new, so a discarded step leaves it as it was."""
+    new state's tensors are new, so a discarded step leaves it as it was.
+    The dense family appends each layer's K/V row to its ring cache and
+    attends in plain PyTorch (``attention_decode_step``), as the
+    reference does."""
     _check_family(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            "the dense family's ring-buffer decode_step (ROADMAP A6); serve it "
-            "through serve.ServeEngine")
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
     caches = []
+    if cfg.family == "dense":
+        for i, layer in enumerate(layer_views(params, cfg)):
+            def attend(z, layer=layer, i=i):
+                out, cache = attn.attention_decode_step(
+                    layer["attn"], z, _kv_layer(state.layers, i), cfg.attn_spec)
+                caches.append(cache)
+                return out
+
+            x = decode_layer_block(cfg, layer, x, attend)
+        return final_logits(params, cfg, x), DecodeState(_stack_kv(caches),
+                                                         step=state.step + 1)
     for i, layer in enumerate(layer_views(params, cfg)):
         cache = ssm_mod.MambaCache(state.layers.conv[i], state.layers.ssm[i])
         y, new_cache = ssm_mod.mamba2_decode_step(

@@ -152,7 +152,7 @@ def quantize_param_tree(params, bits: int = 8, optimal: bool = False,
         raise ValueError("layout='bitplane' excludes optimal= and packed=")
 
     def int_codes(w):
-        return encode(w, _weight_scheme(bits, packed=_auto_packed(bits, w, packed)))
+        return _encode_by_layer(w, _weight_scheme(bits, packed=_auto_packed(bits, w, packed)))
 
     def bitplane_codes(w):
         return _encode_by_layer(w, QScheme.bitplane(bits))

@@ -75,6 +75,14 @@ QMM_SHAPES = [(1, 40, 24), (5, 64, 48), (13, 96, 130), (4, 130, 256),
               (4, 2048, 256), (128, 2048, 2048), (16, 2048, 2048), (EDGE, 2048, 2048),
               (EDGE + 1, 2048, 2048), (112, 2048, 16384), (4092, 1536, 6448),
               (130, 1001, 1000), (33, 96, 130)]
+# slice 8's dense models (gemma-7b, granite-3-8b, qwen2.5-14b): their down
+# projections at decode M 4 and the largest prompt bucket, M 112 (K 12800
+# and 13824 leave a ragged last K slice, which no gemma-2b shape had), and
+# the other new (K, N) at one side of the threshold each
+DENSE_QMM_SHAPES = [(4, 12800, 4096), (112, 12800, 4096), (4, 13824, 5120),
+                    (112, 13824, 5120), (4, 24576, 3072), (112, 3072, 24576),
+                    (4, 5120, 1024), (112, 4096, 1024), (4, 5120, 13824),
+                    (112, 5120, 5120), (4, 3072, 4096), (112, 4096, 12800)]
 
 
 @pytest.fixture
@@ -111,6 +119,17 @@ def _case(seed=0, b=4, h=4, d=16, maxp=4, n_pages=12):
 @pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 def test_qmm_kernel_matches_plain(cuda, m, k, n, bits, packed, xdtype):
+    _check_qmm(cuda, m, k, n, bits, packed, xdtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", DENSE_QMM_SHAPES)
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+def test_qmm_kernel_matches_plain_at_dense_family_shapes(cuda, m, k, n, bits, packed):
+    _check_qmm(cuda, m, k, n, bits, packed, torch.bfloat16)
+
+
+def _check_qmm(cuda, m, k, n, bits, packed, xdtype):
     tq = _weights(k, n, bits, packed)
     x = torch.randn(m, k, generator=torch.Generator().manual_seed(0)).to(xdtype)
     codes, scale = tq.codes.to(cuda), tq.scale.to(cuda)
@@ -189,9 +208,10 @@ def test_paged_attn_kernel_matches_plain(cuda, kv_bits, g):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
-# (H, Hkv, D): gemma-2b's MQA, gemma-7b's MHA, granite-3-8b's GQA and the
-# small pools above
-ATTN_LAYOUTS = [(8, 1, 256), (16, 16, 256), (32, 8, 128), (4, 1, 16), (4, 2, 16)]
+# (H, Hkv, D): gemma-2b's MQA, gemma-7b's MHA, granite-3-8b's GQA, the
+# small pools above and qwen2.5-14b's GQA (R = 5 query heads a kv head)
+ATTN_LAYOUTS = [(8, 1, 256), (16, 16, 256), (32, 8, 128), (4, 1, 16), (4, 2, 16),
+                (40, 8, 128)]
 
 
 def _attn_lens(page):
@@ -1234,6 +1254,63 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _biased(tree, seed=5):
+    """``tree`` with every bias leaf ``b`` drawn N(0, 0.25) from a numpy
+    seed (the init's zeros would hide a bias never added)."""
+    rng = np.random.default_rng(seed)
+
+    def go(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: torch.from_numpy(rng.normal(0, 0.5, tuple(v.shape)).astype(np.float32))
+                .to(v.dtype) if k == "b" else go(v) for k, v in sorted(node.items())}
+    return go(tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-7b", "granite-3-8b", "qwen2.5-14b"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dense_family_card_matches_cpu_plain_path(cuda, arch, bits):
+    """Each reduced dense model of slice 8 at f32 (qwen2.5-14b with nonzero
+    q/k/v biases): the paged engine's greedy tokens and the legacy loop's
+    (ring cache, prefill + 8 decode steps) on the card equal the CPU's plain
+    path from the same weights; the legacy loop launches no paged
+    attention."""
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    plan = PrecisionPlan(model_bits=bits, kv_bits=bits, model_storage="int")
+    cfg = configs.get_reduced(arch, dtype=torch.float32, precision=plan)
+    params = quantize_param_tree(_biased(T.init_params(cfg, seed=0, device="cpu")),
+                                 bits=bits)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 11)))
+    engine, legacy = {}, {}
+    for where in (cuda, "cpu"):
+        eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                          backend="cuda", device=where)
+        res = eng.run(make_trace(8, cfg.vocab_size, max_new=16, max_prompt=32, seed=0))
+        engine[str(where)] = {r: f.tokens.tolist() for r, f in res.items()}
+        p = params if where == "cpu" else _to(params, cuda)
+        before = tpa.launches
+        with registry.using("cuda"):          # on the CPU: the kernels' plain versions
+            logits, state = make_prefill_step(cfg, pad_to=20)(p, {"tokens": prompt.to(where)})
+            toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+            step = make_serve_step(cfg)
+            for _ in range(8):
+                _, nxt, state = step(p, state, toks[-1])
+                toks.append(nxt[:, None])
+        assert tpa.launches == before
+        legacy[str(where)] = torch.cat(toks, 1).cpu()
+    assert engine[str(cuda)] == engine["cpu"]
+    assert torch.equal(legacy[str(cuda)], legacy["cpu"])
 
 
 # ------------------------------------------------ threefry, keyed B1 and B9 --

@@ -350,7 +350,8 @@ def test_more_than_one_group_raises():
 
 
 @pytest.mark.parametrize("over", [dict(family="moe"), dict(family="hybrid"),
-                                  dict(window=8), dict(qkv_bias=True)])
+                                  dict(window=8), dict(family="vlm"),
+                                  dict(family="audio")])
 def test_unported_families_name_a6(over):
     cfg = tconfigs.get_reduced("gemma-2b", **over)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
@@ -358,11 +359,34 @@ def test_unported_families_name_a6(over):
 
 
 def test_dense_legacy_paths_name_a6():
-    cfg = tconfigs.get_reduced("gemma-2b")
+    """What the legacy loop still lacks names A6: a sliding-window ring
+    cache and the architectures not ported yet."""
+    cfg = tconfigs.get_reduced("gemma-2b", window=8)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TT.init_decode_state(cfg, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        serve("gemma-2b", device="cpu", gen=2)
+        serve("mixtral-8x7b", device="cpu", gen=2)
+
+
+def test_qkv_bias_inits_zero_biases_on_q_k_v():
+    cfg = tconfigs.get_reduced("gemma-2b", qkv_bias=True)
+    p = TT.init_params(cfg, device="cpu")["layers"]["attn"]
+    for name, width in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
+        b = p[name]["b"]
+        assert b.shape == (cfg.n_layers, width * cfg.head_dim) and b.dtype == cfg.dtype
+        assert not b.any()
+    assert "b" not in p["o"]
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_dense_legacy_paths_serve(kv_bits):
+    cfg = tconfigs.get_reduced("gemma-2b")
+    st = TT.init_decode_state(cfg, 2, 16, device="cpu")
+    assert st.layers.k.shape[:3] == (cfg.n_layers, 2, 16)
+    tokens, tps = serve("gemma-2b", device="cpu", batch=2, prompt_len=8, gen=3,
+                        kv_bits=kv_bits, weight_bits=8)
+    assert tokens.shape == (2, 11) and tokens.dtype == np.int32
+    assert ((0 <= tokens) & (tokens < cfg.vocab_size)).all() and tps > 0
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "vlm"])

@@ -121,13 +121,37 @@ def jax_decode_logits(eng, fn, tokens, positions, block_table, active):
     return logits
 
 
+def with_biases(params, seed: int, scale: float = 0.5):
+    """A JAX param tree whose every bias leaf ``b`` (zeros at init) is
+    replaced by N(0, scale²) draws from ``default_rng(seed)`` in the leaf's
+    dtype, in sorted-key order — so a test fails if a bias is never added."""
+    rng = np.random.default_rng(seed)
+
+    def go(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k in sorted(node):
+            v = node[k]
+            if k == "b" and not isinstance(v, dict):
+                draw = rng.normal(0.0, scale, v.shape).astype(np.float32)
+                out[k] = jnp.asarray(draw, v.dtype)
+            else:
+                out[k] = go(v)
+        return out
+
+    return go(params)
+
+
 def serve_both(dtype: str, weight_bits: int, kv_bits: int, *, n_requests=8,
                max_new=8, max_prompt=16, page_size=8, seed=0,
-               include_embedding=False):
+               include_embedding=False, arch="gemma-2b", bias_seed=None):
     """Serve the same ``make_trace`` through the reference engine (``ref``
     backend) and the port's engine on the CPU, with the reference's params
-    bridged across (``include_embedding`` quantizes the embedding table
-    too). Returns (ref_engine, port_engine, ref_results, port_results)."""
+    of the reduced ``arch`` bridged across (``include_embedding`` quantizes
+    the embedding table too; ``bias_seed`` draws nonzero q/k/v biases into
+    both trees, :func:`with_biases`). Returns (ref_engine, port_engine,
+    ref_results, port_results)."""
     from repro import configs as jconfigs
     from repro.launch.serve import make_trace as jtrace
     from repro.models import transformer as JT
@@ -143,9 +167,11 @@ def serve_both(dtype: str, weight_bits: int, kv_bits: int, *, n_requests=8,
         (jnp.bfloat16, torch.bfloat16)
     kw = dict(kv_bits=kv_bits, model_bits=weight_bits,
               model_storage="int" if weight_bits else "fake")
-    jcfg = dataclasses.replace(jconfigs.get_reduced("gemma-2b"), dtype=jd)
-    tcfg = tconfigs.get_reduced("gemma-2b", dtype=td)
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), dtype=jd)
+    tcfg = tconfigs.get_reduced(arch, dtype=td)
     params = JT.init_params(jax.random.PRNGKey(seed), jcfg)
+    if bias_seed is not None:
+        params = with_biases(params, bias_seed)
     if weight_bits:
         params = quantize_param_tree(params, bits=weight_bits,
                                      include_embedding=include_embedding)
