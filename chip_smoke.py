@@ -168,13 +168,31 @@ NVIDIA card.
    same prompts; ``[check dense]``: the three reduced models at f32 (qwen's
    q/k/v biases nonzero), 8 and 4 bits, engine and legacy loop on the card
    against the CPU's plain path;
-11. every plane the paths draw on the card takes the threefry kernel: a
+11. slice 9 — ``[kernel] ssd zamba2``: B12 at zamba2-2.7b's prefill (B 4,
+   4 chunks of 256, H 80, P 64, N 64: half of phase 1's state block) on the
+   tensor cores, the single 1023-row chunk, and f32 on the SIMT kernel with
+   and without an initial state, under slice 7's tolerances; ``[kernel]
+   qmm zamba2``: B5 at its in_proj (N 10448), out_proj, q/k/v/o, gate/up
+   and down, int8 and int4, at decode M 4 and the prefills' M 4096 and
+   4092. ``[serve-hybrid]``: full-width zamba2-2.7b (54 Mamba2 layers and
+   one shared attention block after every 9, random weights from seed 0)
+   through the legacy ``serve`` (4 prompts of 1024, 32 new tokens) at
+   weight/KV bits 8/8, 4/4 and bf16, with ``[serve-mamba]``'s gates: 54
+   SSD launches a prefill on the tensor cores, ``qmm`` 2 × 54 + 7 × 6 =
+   150 a prefill and a decode step at int bits (0 at bf16), peak memory,
+   the Mamba2 and shared KV cache bytes, prefill and decode profiles, and
+   the f32 prefill/decode consistency gated from the reference's own gap
+   (``HYBRID_CONSISTENCY_TOL``); ``[check hybrid]``: the reduced model at
+   f32 and bf16, weight/KV bits 0/8/4, on the card against the CPU's plain
+   path, both fed the CPU's greedy tokens (f32 logits within 1e-4 where
+   the KV rows are raw; tokens equal but at near-ties);
+12. every plane the paths draw on the card takes the threefry kernel: a
    phase fails if ``prng`` made an int64 hash on the card in it (its
    counter, set to 0 just before each phase but the kernels'), and the main
    paths' plane launches are counted by (output, keys, size) for the
    ``kernels`` line; ``quant_adamw`` pass 2 and ``ds_quant`` run their keyed
    entries on the paths (their rand entries 0 launches);
-12. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
+13. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -431,6 +449,58 @@ DENSE_RUNS = (("gemma-7b", 8), ("granite-3-8b", 8), ("qwen2.5-14b", 8), ("qwen2.
 LEGACY_DENSE = dict(arch="qwen2.5-14b", weight_bits=8, kv_bits=8, batch=4, prompt_len=32,
                     gen=16)
 DENSE_BIAS_SEED = 5           # [check dense]: nonzero q/k/v biases, N(0, 0.25)
+# slice 9: full-width zamba2-2.7b (the hybrid family) through the legacy
+# serve loop — 4 random prompts of 1024 tokens and 32 new tokens, as
+# [serve-mamba], at weight/KV bits 8/8, 4/4 and bf16/bf16; the shared
+# block's six ring caches hold prompt + gen rows
+HYBRID = dict(batch=4, prompt_len=1024, gen=32)
+# layers, d_model, SSM heads, head_dim, state, shared_attn_every
+HYBRID_WIDTH = (54, 2560, 80, 64, 64, 9)
+HYBRID_BITS = (8, 4, 0)
+# qmm at zamba2's projections: (K, N) of in_proj (N = 2·5120 + 2·64 + 80:
+# a ragged last N tile), out_proj, the shared block's q/k/v/o, gate/up and
+# down, at decode (M = batch) and the prefills (the prompt, and the prompt
+# less its last token: the consistency check)
+HYBRID_QMM_KN = ((2560, 10448, "in_proj"), (5120, 2560, "out_proj"),
+                 (2560, 2560, "q, k, v, o"), (2560, 10240, "gate, up"),
+                 (10240, 2560, "down"))
+HYBRID_QMM_MS = (4, 4 * 1024, 4 * 1023)
+# ssd_chunk_scan at zamba2's heads and state (H 80, N 64: half of phase
+# 1's 128-wide state block): the prefill's 4 chunks of 256, the single
+# 1023-row chunk, and f32 on the SIMT kernel with and without an initial
+# state
+HYBRID_SSD_CASES = [
+    ((4, 4, 256, 80, 64, 64), "bfloat16", False, "zamba2 prefill, 4 chunks"),
+    ((4, 1, 1023, 80, 64, 64), "bfloat16", False, "zamba2 prefill of 1023, one chunk"),
+    ((4, 4, 256, 80, 64, 64), "float32", False, "zamba2 f32 prefill, 4 chunks"),
+    ((4, 1, 1023, 80, 64, 64), "float32", False, "zamba2 f32 prefill of 1023"),
+    ((4, 1, 1023, 80, 64, 64), "float32", True, "zamba2 f32, initial state")]
+# prefill(prompt[:, :-1]) + one decode step against prefill(prompt) at
+# full width, f32, both prefills reserving the decoded token's row in the
+# shared caches (pad_to = prompt length): within HYBRID_CONSISTENCY_TOL of
+# the largest |logit|. The reference itself parts there by 7.1e-3 of it on
+# the CPU (0.0660 of 9.29, random weights from PRNGKey(0);
+# scripts/reference_mamba_consistency.py --arch zamba2-2.7b --full --batch
+# 4 --prompt 1024, ROADMAP): the gate leaves 2.8x that for the port's own
+# rounding and weights, as [serve-mamba]'s 2e-2 left mamba2's 5.9e-3
+HYBRID_CONSISTENCY_TOL = 2e-2
+# [check hybrid]: (dtype, weight bits, KV bits) of each run, both sides fed
+# the CPU's greedy tokens. f32 with raw KV rows is held to HYBRID_CHECK_TOL
+# of the largest |logit|, card vs CPU plain path (slice 7's). With int KV,
+# or at bf16, the logits' gap is reported and the greedy tokens must agree
+# wherever the CPU's top two logits lie more than HYBRID_TIE of the largest
+# apart, a little above the gap two correct runs show on an NVIDIA H100
+# 80GB HBM3 (700 W): at f32, sums in another order put a KV row within
+# noise of a rounding boundary and a code rounds one step apart (27 bytes
+# and 1.46e-3 of the largest logit after 8 steps at 8/8); at bf16 the runs
+# part by 8.7e-3 with raw KV rows, and at 8/8 the CPU's top two logits of
+# one step lie 4.8e-4 of the largest apart (2e-2 is the CPU tests' bf16
+# model tolerance)
+HYBRID_CHECKS = (("float32", 0, 0), ("float32", 8, 0), ("float32", 4, 0),
+                 ("float32", 8, 8), ("float32", 4, 4), ("bfloat16", 0, 0),
+                 ("bfloat16", 8, 8), ("bfloat16", 4, 4))
+HYBRID_CHECK_TOL = 1e-4
+HYBRID_TIE = {"float32": 2e-3, "bfloat16": 2e-2}
 
 
 def _fail(msg: str, code: int):
@@ -601,18 +671,25 @@ def check_qmm(dev, flush):
     return rows
 
 
-def check_qmm_mamba(dev, flush):
-    """``qmm`` at mamba2-780m's int8 projections — in_proj (K 1536, N 6448:
-    N not a multiple of 64) and out_proj (K 3072, N 1536) — at decode (M =
-    batch) and at the prefills of ``[serve-mamba]`` (M = B·S of the prompt
-    and of the prompt less its last token)."""
+def check_qmm_ssm(dev, flush, arch="mamba2-780m"):
+    """``qmm`` at the int projections of the legacy loop's Mamba2 models, at
+    decode (M = batch, the SIMT core) and at the prefills of their serve
+    phase (M = B·S of the prompt and of the prompt less its last token, the
+    tensor cores): mamba2-780m's in_proj (K 1536, N 6448: N not a multiple
+    of 64) and out_proj (K 3072, N 1536), int8; zamba2-2.7b's
+    ``HYBRID_QMM_KN`` (in_proj's N 10448 leaves a ragged last tile), int8
+    and packed int4."""
     import torch
 
-    gen = torch.Generator(device=dev).manual_seed(11)
+    kn, ms, bits_list, seed, model = {
+        "mamba2-780m": (MAMBA_QMM_KN, MAMBA_QMM_MS, (8,), 11, "mamba2"),
+        "zamba2-2.7b": (HYBRID_QMM_KN, HYBRID_QMM_MS, (8, 4), 13, "zamba2")}[arch]
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    for m in MAMBA_QMM_MS:
-        for k, n, what in MAMBA_QMM_KN:
-            rows.append(_qmm_row(dev, gen, flush, 8, m, k, n, f" (mamba2 {what})"))
+    for bits in bits_list:
+        for m in ms:
+            for k, n, what in kn:
+                rows.append(_qmm_row(dev, gen, flush, bits, m, k, n, f" ({model} {what})"))
     return rows
 
 
@@ -3370,8 +3447,8 @@ def _ssd_inputs(dev, shape, dtype, init, seed=0):
     return x, dt, logdec, bm, cm, st
 
 
-def check_ssd(dev, flush):
-    """``ssd_chunk_scan`` against its plain version at ``SSD_CASES``: y
+def check_ssd(dev, flush, cases=SSD_CASES):
+    """``ssd_chunk_scan`` against its plain version at ``cases``: y
     within ``SSD_TOL`` and the final state within ``SSD_STATE_TOL`` (rtol
     and atol), both finite; each row on the core ``ssd.plan`` picks from
     x's dtype (bf16 on the tensor cores, f32 on the SIMT kernel), checked
@@ -3381,7 +3458,7 @@ def check_ssd(dev, flush):
     from repro_torch.kernels import ssd as SD
 
     rows = []
-    for shape, dname, init, role in SSD_CASES:
+    for shape, dname, init, role in cases:
         dtype = getattr(torch, dname)
         args = _ssd_inputs(dev, shape, dtype, init)
         before = SD.tc_launches
@@ -3450,45 +3527,72 @@ def profile_steps(step, params, state, tok, steps: int = 5):
     return profile_window(advance, steps, "legacy decode steps")
 
 
-def _consistency(T, step, params, prompts, cfg):
+def _consistency(T, step, params, prompts, cfg, tag):
     """prefill(prompt) against prefill(prompt[:, :-1]) + one decode step:
     the two last-position logits over the real vocab (the pad is masked to
-    -1e30), and the seconds of the whole prefill."""
+    -1e30), and the seconds of the whole prefill. Both prefills reserve
+    the prompt's length in any KV cache (``pad_to``), so the decode step
+    appends its row after prompt[:, :-1] instead of overwriting the last
+    one (the ring cursor is ``min(length, rows − 1)``)."""
     import torch
 
+    pad = prompts.shape[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    full, _ = T.prefill(params, prompts, cfg)
+    full, _ = T.prefill_state(params, prompts, cfg, pad_to=pad)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    _, state = T.prefill(params, prompts[:, :-1], cfg)
-    last, nxt, state = step(params, state, prompts[:, -1:].to(torch.int32))
+    _, state = T.prefill_state(params, prompts[:, :-1], cfg, pad_to=pad)
+    last, _, _ = step(params, state, prompts[:, -1:].to(torch.int32))
     v = cfg.vocab_size
     full, last = full[:, :v].float(), last[:, -1, :v].float()
     if not (torch.isfinite(full).all() and torch.isfinite(last).all()):
-        raise AssertionError("[serve-mamba] logits not finite")
+        raise AssertionError(f"{tag} logits not finite")
     out = {"max_abs": float((last - full).abs().max()), "logit_scale": float(full.abs().max()),
            "argmax_equal": int((last.argmax(-1) == full.argmax(-1)).sum())}
-    return out, full, last, prefill_s, state, nxt
+    return out, full, last, prefill_s
 
 
-def serve_mamba(dev, ssd_rows, qmm_rows):
-    """Slice 7's main path: ``repro_torch.launch.serve.serve`` on full-width
-    mamba2-780m (48 layers, d_model 1536, 48 heads × 64, state 128; random
-    weights, seed 0) at ``MAMBA``, weight bits 8 then 0 (the bf16 yardstick),
-    the ``ssd_chunk_scan`` and ``qmm`` counters set to 0 just before and read
-    just after each call: 48 SSD launches (one prefill), qmm 2 per layer per
-    prefill and per decode step at 8 bits, none at 0; its tokens/s gives the
-    decode step time. Then, on the same weights through ``T.prefill`` and
-    the serve step (counters again, 96 SSD launches): prefill(prompt), timed
-    (the prefill time), against prefill(prompt[:, :-1]) + one decode step,
-    reported at bf16; the serving peak memory; the cache bytes; a profile
-    of one prefill (SSD's device ms in it) and of 5 decode steps. Then the
-    same consistency at f32 (f32
-    weights, seed 0), gated at ``MAMBA_CONSISTENCY_TOL`` of the largest
-    |logit|. Only the serve() calls' launches are the main path's (the
-    kernels line); the checks' are reported apart. Every shape either
-    kernel launched on any of these runs must be among the checked ones."""
+# the legacy loop's full-width runs of slices 7 and 9: (tag, width, serve()
+# shape, (weight, KV) bits of each run, f32 consistency gate)
+SSM_RUNS = {
+    "mamba2-780m": ("[serve-mamba]", MAMBA_WIDTH, MAMBA, [(b, 0) for b in MAMBA_BITS],
+                    MAMBA_CONSISTENCY_TOL),
+    "zamba2-2.7b": ("[serve-hybrid]", HYBRID_WIDTH, HYBRID, [(b, b) for b in HYBRID_BITS],
+                    HYBRID_CONSISTENCY_TOL),
+}
+
+
+def _ssm_width(cfg) -> tuple:
+    spec = cfg.ssm_spec
+    width = (cfg.n_layers, cfg.d_model, spec.n_heads, spec.head_dim, spec.d_state)
+    return width + (cfg.shared_attn_every,) if cfg.family == "hybrid" else width
+
+
+def serve_ssm(dev, ssd_rows, qmm_rows, arch="mamba2-780m"):
+    """The legacy loop's main path on a Mamba2 stack — slice 7's
+    mamba2-780m (48 layers, d_model 1536, 48 heads × 64, state 128) or
+    slice 9's zamba2-2.7b (54 such layers at d_model 2560, 80 heads × 64,
+    state 64, and one shared attention block after every 9, each
+    application on a ring KV cache of prompt + gen rows): random weights,
+    seed 0, ``repro_torch.launch.serve.serve`` at ``SSM_RUNS[arch]``'s
+    shape and (weight, KV) bits, the ``ssd_chunk_scan`` and ``qmm``
+    counters set to 0 just before and read just after each call: one SSD
+    launch a layer (one prefill), every one on the tensor cores, and at int
+    weights ``qmm`` 2 a layer plus 7 a shared-block application per prefill
+    and per decode step, none at bf16; its tokens/s gives the decode step
+    time. Then, on the same weights through ``T.prefill_state`` and the
+    serve step (counters again): prefill(prompt), timed (the prefill time),
+    against prefill(prompt[:, :-1]) + one decode step, reported; the
+    serving peak memory; a profile of one prefill as serve() runs it (SSD's
+    and ``qmm``'s device ms in it, its peak memory) and, from its state, of
+    5 decode steps after one (their peak too); that state's cache bytes
+    (the Mamba2 caches and the shared KV caches apart). Then
+    the same consistency at f32 (f32 weights, seed 0), gated at the run's
+    tolerance of the largest |logit|. Only the serve() calls' launches are
+    the main path's (the kernels line); the checks' are reported apart.
+    Every shape either kernel launched on any of these runs must be among
+    the checked ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs, prng
@@ -3499,9 +3603,10 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
     from repro_torch.models import transformer as T
     from repro_torch.quant import tree_nbytes
 
-    bsz, plen, gen = MAMBA["batch"], MAMBA["prompt_len"], MAMBA["gen"]
-    # launches by shape: the main path's (the two serve() calls) and the
-    # checks' (the consistency prefills and steps, bf16 and f32) apart
+    tag, width, shape, bits_runs, tol = SSM_RUNS[arch]
+    bsz, plen, gen = shape["batch"], shape["prompt_len"], shape["gen"]
+    # launches by shape: the main path's (the serve() calls) and the
+    # checks' (the consistency prefills and steps, and at f32) apart
     path = {"ssd_chunk_scan": collections.Counter(), "qmm": collections.Counter()}
     checks = {"ssd_chunk_scan": collections.Counter(), "qmm": collections.Counter()}
 
@@ -3511,7 +3616,7 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
         SD.shape_launches.clear()
 
     def read(into):
-        _core_gate("[serve-mamba]", Q)
+        _core_gate(tag, Q)
         into["ssd_chunk_scan"].update(SD.shape_launches)
         into["qmm"].update(Q.shape_launches)
         return {"ssd_chunk_scan": SD.launches, "qmm": Q.launches}
@@ -3520,104 +3625,129 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
         return prng.randint(prng.fold_in(prng.PRNGKey(0), 1), (bsz, plen), 0,
                             cfg.vocab_size, device=dev)
 
+    hybrid = arch != "mamba2-780m"
     out = {}
-    for bits in MAMBA_BITS:
+    for wbits, kvbits in bits_runs:
+        label = f"{wbits or 'bf16'}/{kvbits or 'bf16'}" if hybrid else f"{wbits or 'bf16'}"
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset()
         t0 = time.perf_counter()
-        tokens, tps = S.serve("mamba2-780m", reduced=False, weight_bits=bits, device=dev,
-                              **MAMBA)
+        tokens, tps = S.serve(arch, reduced=False, weight_bits=wbits, kv_bits=kvbits,
+                              device=dev, **shape)
         wall = time.perf_counter() - t0
         if SD.tc_launches != SD.launches:
-            raise AssertionError(f"[serve-mamba] bits {bits}: {SD.launches - SD.tc_launches} "
+            raise AssertionError(f"{tag} bits {label}: {SD.launches - SD.tc_launches} "
                                  f"of {SD.launches} SSD launches off the tensor cores")
         launches = read(path)
         call_peak = torch.cuda.max_memory_allocated() - base
-        plan = S._resolve_plan(None, 0, bits)
-        cfg, params = S._build("mamba2-780m", reduced=False, plan=plan, seed=0, device=dev)
-        spec, L = cfg.ssm_spec, cfg.n_layers
-        if (L, cfg.d_model, spec.n_heads, spec.head_dim, spec.d_state) != MAMBA_WIDTH:
-            raise AssertionError(f"not full-width mamba2-780m: {cfg}")
+        plan = S._resolve_plan(None, kvbits, wbits)
+        cfg, params = S._build(arch, reduced=False, plan=plan, seed=0, device=dev)
+        L = cfg.n_layers
+        if _ssm_width(cfg) != width:
+            raise AssertionError(f"not full-width {arch}: {cfg}")
         if tokens.shape != (bsz, plen + gen) or tokens.min() < 0 \
                 or tokens.max() >= cfg.vocab_size:
-            raise AssertionError(f"[serve-mamba] tokens {tokens.shape}, range "
+            raise AssertionError(f"{tag} tokens {tokens.shape}, range "
                                  f"{tokens.min()}..{tokens.max()}")
-        want = {"ssd_chunk_scan": L, "qmm": 2 * L * (1 + gen) if bits else 0}
+        # in/out projections a Mamba2 layer, q/k/v/o/gate/up/down a shared block
+        per_pass = 2 * L + 7 * (L // cfg.shared_attn_every if hybrid else 0) if wbits else 0
+        want = {"ssd_chunk_scan": L, "qmm": per_pass * (1 + gen)}
         if launches != want:
-            raise AssertionError(f"[serve-mamba] bits {bits}: launches {launches}, "
+            raise AssertionError(f"{tag} bits {label}: launches {launches}, "
                                  f"expected {want}")
         # the same weights and prompts through the entry points serve() calls
         prompts = prompts_for(cfg)
         if not np.array_equal(prompts.cpu().numpy(), tokens[:, :plen]):
-            raise AssertionError("[serve-mamba] the rebuilt prompts differ from serve()'s")
+            raise AssertionError(f"{tag} the rebuilt prompts differ from serve()'s")
         step = make_serve_step(cfg)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset()
-        cons, _, _, prefill_s, state, nxt = _consistency(T, step, params, prompts, cfg)
+        cons, _, _, prefill_s = _consistency(T, step, params, prompts, cfg, tag)
         cons_launches = read(checks)
         serving_peak = torch.cuda.max_memory_allocated() - base
-        if cons_launches != {"ssd_chunk_scan": 2 * L, "qmm": 2 * L * 3 if bits else 0}:
-            raise AssertionError(f"[serve-mamba] consistency launches {cons_launches}")
+        if cons_launches != {"ssd_chunk_scan": 2 * L, "qmm": 3 * per_pass}:
+            raise AssertionError(f"{tag} consistency launches {cons_launches}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            T.prefill(params, prompts, cfg)
+            logits, state = T.prefill_state(params, prompts, cfg, pad_to=plen + gen)
             torch.cuda.synchronize()
             pre_wall_ms = 1e3 * (time.perf_counter() - t0)
+        prefill_peak = torch.cuda.max_memory_allocated() - base
         by_kernel, _ = _device_kernels(prof)
         pre_dev = sum(by_kernel.values())
         pre_ssd = sum(v for k, v in by_kernel.items() if "ssd_" in k)
+        pre_qmm = sum(v for k, v in by_kernel.items() if "qmm_" in k or "splitk_reduce" in k)
         pre_top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
         print(f"[profile] one prefill ({bsz} x {plen}): wall {pre_wall_ms:.1f} ms, device "
-              f"busy {pre_dev:.1f} ms, ssd_chunk_scan {pre_ssd:.2f} ms of it; top: " + "; ".join(
+              f"busy {pre_dev:.1f} ms, ssd_chunk_scan {pre_ssd:.2f} ms and qmm {pre_qmm:.2f} "
+              f"ms of it; peak {prefill_peak / 2**30:.2f} GiB; top: " + "; ".join(
                   f"{k[:40]} {v:.2f}" for k, v in pre_top.items()), flush=True)
-        prof_decode = profile_steps(step, params, state, nxt[:, None])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        prof_decode = profile_steps(step, params, state, nxt)
+        decode_peak = torch.cuda.max_memory_allocated() - base
+        cache = {"layers": tree_nbytes(state.layers._asdict()) // bsz,
+                 "shared": (tree_nbytes({k: v for k, v in state.shared._asdict().items()
+                                         if v is not None}) // bsz
+                            if state.shared is not None else 0)}
         # serve() times its gen − 1 steady decode steps of the whole batch
-        run = {"weight_bits": bits, "tokens_shape": list(tokens.shape),
+        run = {"weight_bits": wbits, "kv_bits": kvbits, "tokens_shape": list(tokens.shape),
                "prefill_ms": 1e3 * prefill_s,
                "decode_ms_per_step": 1e3 * bsz / tps,
                "decode_tokens_per_s": tps, "serve_call_peak_bytes": call_peak,
-               "serving_peak_bytes": serving_peak,
-               "cache_bytes_per_sequence": tree_nbytes(state.layers._asdict()) // bsz,
+               "serving_peak_bytes": serving_peak, "prefill_peak_bytes": prefill_peak,
+               "decode_peak_bytes": decode_peak,
+               "cache_bytes_per_sequence": cache["layers"] + cache["shared"],
+               "mamba_cache_bytes_per_sequence": cache["layers"],
+               "shared_kv_cache_bytes_per_sequence": cache["shared"],
                "weight_bytes": tree_nbytes(params),
                "wall_s": wall, "launches": launches, "consistency_launches": cons_launches,
-               "consistency_bf16": cons,
+               "consistency": cons,
                "prefill_profile": {"wall_ms": pre_wall_ms, "device_ms": pre_dev,
-                                   "ssd_ms": pre_ssd, "top_kernels_ms": pre_top},
+                                   "ssd_ms": pre_ssd, "qmm_ms": pre_qmm,
+                                   "top_kernels_ms": pre_top},
                "decode_profile": prof_decode}
-        print(f"[serve-mamba] mamba2-780m full width, weight bits {bits or 'bf16'}: tokens "
+        print(f"{tag} {arch} full width, weight{'/KV' if hybrid else ''} bits {label}: tokens "
               f"{tuple(tokens.shape)}; prefill {run['prefill_ms']:.1f} ms ({bsz} x {plen}; "
               f"profiled: wall {pre_wall_ms:.1f}, device {pre_dev:.1f}, ssd_chunk_scan "
-              f"{pre_ssd:.2f}); "
+              f"{pre_ssd:.2f}, qmm {pre_qmm:.2f}); "
               f"decode {run['decode_ms_per_step']:.2f} "
               f"ms/step, {tps:.1f} tok/s; peak {call_peak / 2**30:.2f} GiB over the serve() "
               f"call (weight init included), {serving_peak / 2**30:.2f} GiB serving "
-              f"(prefill, prefill, step); cache {run['cache_bytes_per_sequence']:,} "
-              f"bytes/sequence; weights {run['weight_bytes']:,} bytes; launches {launches}; "
-              f"bf16 prefill(p[:-1]) + decode vs prefill(p): max |dlogit| "
+              f"(prefill, prefill, step), {prefill_peak / 2**30:.2f} over one prefill, "
+              f"{decode_peak / 2**30:.2f} over 6 decode steps; cache "
+              f"{run['cache_bytes_per_sequence']:,} bytes/sequence (Mamba2 "
+              f"{cache['layers']:,}, shared KV {cache['shared']:,}); weights "
+              f"{run['weight_bytes']:,} bytes; launches {launches}; "
+              f"prefill(p[:-1]) + decode vs prefill(p): max |dlogit| "
               f"{cons['max_abs']:.3e} of {cons['logit_scale']:.3g}, argmax equal "
               f"{cons['argmax_equal']}/{bsz} (reported, not gated)", flush=True)
-        out[bits] = run
+        out[label if hybrid else wbits] = run
         del params, state
         torch.cuda.empty_cache()
     # the bookkeeping gate at f32, as the reference's test runs it
-    cfg = configs.get_config("mamba2-780m", dtype=torch.float32)
+    cfg = configs.get_config(arch, dtype=torch.float32)
     params = T.init_params(cfg, seed=0, device=dev)
     reset()
-    cons, full, last, _, _, _ = _consistency(T, make_serve_step(cfg), params,
-                                              prompts_for(cfg), cfg)
+    cons, full, last, _ = _consistency(T, make_serve_step(cfg), params,
+                                       prompts_for(cfg), cfg, tag)
     cons["launches"] = read(checks)
-    tol = MAMBA_CONSISTENCY_TOL
     ok = cons["max_abs"] <= tol * cons["logit_scale"]
-    print(f"[serve-mamba] f32 full width: prefill(p[:-1]) + decode vs prefill(p): max "
+    print(f"{tag} f32 full width: prefill(p[:-1]) + decode vs prefill(p): max "
           f"|dlogit| {cons['max_abs']:.3e} of {cons['logit_scale']:.3g} (tol {tol:g} of "
           f"the largest), argmax equal {cons['argmax_equal']}/{bsz}; launches "
           f"{cons['launches']}", flush=True)
     if not ok or cons["launches"]["ssd_chunk_scan"] != 2 * cfg.n_layers:
-        raise AssertionError(f"[serve-mamba] f32 consistency: {cons}")
+        raise AssertionError(f"{tag} f32 consistency: {cons}")
     out["consistency_f32"] = cons
     del params, full, last
     checked = {"ssd_chunk_scan": {r["key"] for r in ssd_rows},
@@ -3625,7 +3755,7 @@ def serve_mamba(dev, ssd_rows, qmm_rows):
     for name in path:
         unchecked = (set(path[name]) | set(checks[name])) - checked[name]
         if unchecked:
-            raise AssertionError(f"[serve-mamba] {name} launched at unchecked shapes "
+            raise AssertionError(f"{tag} {name} launched at unchecked shapes "
                                  f"{sorted(unchecked)}")
     out["shape_launches"] = {name: [[*k, v] for k, v in c.items()] for name, c in path.items()}
     out["check_shape_launches"] = {name: [[*k, v] for k, v in c.items()]
@@ -3679,6 +3809,75 @@ def agree_mamba(dev):
             raise AssertionError(f"[check] reduced mamba2 {dname} bits {bits}: tokens equal "
                                  f"{same}, logits rel {rel}")
         out[f"{dname}_{bits}"] = {"tokens_equal": same, "logits_max_rel_diff": rel}
+    return out
+
+
+def agree_hybrid(dev):
+    """Reduced zamba2-2.7b (4 layers, the shared block after every 2) built
+    in-process from one torch seed, chunk 16 (a 64-token prompt is 4
+    chunks), at ``HYBRID_CHECKS``' dtypes and weight/KV bits, on the card
+    (``ssd_chunk_scan``, ``qmm``) against the CPU's plain path: prefill
+    (shared caches of prompt + 9 rows) + 8 greedy decode steps, each side
+    fed the CPU's greedy tokens; at f32 with raw KV rows every logit within
+    ``HYBRID_CHECK_TOL`` of the largest, and everywhere the card's greedy
+    token equal to the CPU's where the CPU's top two logits lie more than
+    ``HYBRID_TIE`` of the largest apart. Both run the ``cuda`` backend (on
+    the CPU: the kernels' plain versions)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+
+    out = {}
+    for dname, bits, kv_bits in HYBRID_CHECKS:
+        plan = PrecisionPlan(model_bits=bits, kv_bits=kv_bits,
+                             model_storage="int" if bits else "fake")
+        cfg = dataclasses.replace(configs.get_reduced(
+            "zamba2-2.7b", dtype=getattr(torch, dname), precision=plan), ssd_chunk=16)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        if bits:
+            params = quantize_param_tree(params, bits=bits)
+        step = make_serve_step(cfg)
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 64)))
+        lgs, fed = {}, None
+        for label, where in (("cpu", "cpu"), ("card", dev)):
+            p = _tree_to(params, where)
+            with registry.using("cuda"):  # on the CPU: the kernels' plain versions
+                logits, state = make_prefill_step(cfg, pad_to=64 + 9)(
+                    p, {"tokens": prompt.to(where)})
+                out_ = [logits]
+                for i in range(8):
+                    tok = torch.argmax(out_[-1], -1) if fed is None else fed[i]
+                    lg, _, state = step(p, state, tok.to(where, torch.int32)[:, None])
+                    out_.append(lg[:, 0])
+            lgs[label] = [t.float().cpu()[:, :cfg.vocab_size] for t in out_]
+            fed = [torch.argmax(t, -1) for t in lgs["cpu"]]
+        rel = tied = same = 0
+        for a, b in zip(lgs["card"], lgs["cpu"]):
+            scale = b.abs().max()
+            rel = max(rel, float((a - b).abs().max() / scale))
+            top2 = b.topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) > HYBRID_TIE[dname] * scale
+            tied += int((~clear).sum())
+            same += int(((a.argmax(-1) == b.argmax(-1)) | ~clear).sum())
+        n = 4 * len(lgs["cpu"])
+        gated = dname == "float32" and not kv_bits
+        print(f"[check] reduced zamba2-2.7b {dname} weight/KV bits {bits or 'bf16'}/"
+              f"{kv_bits or 'raw'}: card vs CPU plain path, fed the CPU's tokens — greedy "
+              f"tokens equal {same}/{n} ({tied} within {HYBRID_TIE[dname]:g} of a tie), logits max "
+              f"rel diff {rel:.2e} ({'tol %g' % HYBRID_CHECK_TOL if gated else 'reported'})",
+              flush=True)
+        if same != n or (gated and rel > HYBRID_CHECK_TOL):
+            raise AssertionError(f"[check hybrid] reduced zamba2 {dname} bits "
+                                 f"{bits}/{kv_bits}: tokens equal {same}/{n}, logits rel {rel}")
+        out[f"{dname}_{bits}_{kv_bits}"] = {"tokens_equal": same, "near_ties": tied,
+                                            "logits_max_rel_diff": rel}
     return out
 
 
@@ -3941,8 +4140,10 @@ def main():
     qout_rows = phase("kernel qmm_qout", check_qmm_qout, dev, flush)
     unembed_rows = phase("kernel qmm_t unembed", check_qmm_t_unembed, dev, flush)
     ssd_rows = phase("kernel ssd_chunk_scan", check_ssd, dev, flush)
-    mamba_qmm_rows = phase("kernel qmm mamba2", check_qmm_mamba, dev, flush)
+    mamba_qmm_rows = phase("kernel qmm mamba2", check_qmm_ssm, dev, flush)
     dense_qmm_rows = phase("kernel qmm dense", check_qmm_dense, dev, flush)
+    hybrid_ssd_rows = phase("kernel ssd zamba2", check_ssd, dev, flush, HYBRID_SSD_CASES)
+    hybrid_qmm_rows = phase("kernel qmm zamba2", check_qmm_ssm, dev, flush, "zamba2-2.7b")
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -3973,7 +4174,7 @@ def main():
     act = phase("act-quant", act_quant_path, dev)
     embed_run = phase("serve-embed", serve_embed, dev, runs[8], checked)
     embed_small = phase("check embed and act-quant", agree_embed_act, dev)
-    mamba = phase("serve-mamba", serve_mamba, dev, ssd_rows, mamba_qmm_rows)
+    mamba = phase("serve-mamba", serve_ssm, dev, ssd_rows, mamba_qmm_rows)
     mamba_small = phase("check mamba", agree_mamba, dev)
     # slice 8: every qmm launch of [serve-dense] and [serve-legacy-dense]
     # must be at a shape checked for it
@@ -3981,6 +4182,11 @@ def main():
     dense = phase("serve-dense", serve_dense, dev, dense_checked)
     legacy_dense = phase("serve-legacy-dense", serve_legacy_dense, dev, dense_checked)
     dense_small = phase("check dense", agree_dense, dev)
+    # slice 9: every ssd_chunk_scan and qmm launch of [serve-hybrid] must
+    # be at a shape checked for it
+    hybrid = phase("serve-hybrid", serve_ssm, dev, hybrid_ssd_rows, hybrid_qmm_rows,
+                   "zamba2-2.7b")
+    hybrid_small = phase("check hybrid", agree_hybrid, dev)
 
     # threefry launches on the main paths: the phases' reads (tf_path), and
     # the runs whose counters are reset again before a later run of the
@@ -4123,20 +4329,23 @@ def main():
     # path: the wrappers' shape counters, reset just before and read just
     # after each serve() call, summed (the consistency checks' launches are
     # in the report's "check_shape_launches")
-    mamba_path = {name: {tuple(k[:-1]): k[-1] for k in rows}
-                  for name, rows in mamba["shape_launches"].items()}
+    # (and [serve-hybrid]'s at zamba2's, slice 9)
     ssd_errors = {r["name"]: {"y": r.pop("y_err"), "state": r.pop("state_err")}
-                  for r in ssd_rows}
-    for r in ssd_rows:
-        r["launches"] = mamba_path["ssd_chunk_scan"].get(r.pop("key"), 0)
-        kernels.append({"name": r.pop("name"), "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/ssd.cu",
-                        "replaces": "src/repro/kernels/ssd.py:69", **r})
-    for r in mamba_qmm_rows:
-        r["launches"] = mamba_path["qmm"].get(r.pop("key"), 0)
-        kernels.append({"name": r.pop("name"), "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/qmm.cu",
-                        "replaces": "src/repro/kernels/qmm.py:158", **r})
+                  for r in (*ssd_rows, *hybrid_ssd_rows)}
+    for run, ssd_rows_, qmm_rows_ in ((mamba, ssd_rows, mamba_qmm_rows),
+                                      (hybrid, hybrid_ssd_rows, hybrid_qmm_rows)):
+        run_path = {name: {tuple(k[:-1]): k[-1] for k in rows}
+                    for name, rows in run["shape_launches"].items()}
+        for r in ssd_rows_:
+            r["launches"] = run_path["ssd_chunk_scan"].get(r.pop("key"), 0)
+            kernels.append({"name": r.pop("name"), "route": "cuda",
+                            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+                            "replaces": "src/repro/kernels/ssd.py:69", **r})
+        for r in qmm_rows_:
+            r["launches"] = run_path["qmm"].get(r.pop("key"), 0)
+            kernels.append({"name": r.pop("name"), "route": "cuda",
+                            "source": "src/repro_torch/kernels/csrc/qmm.cu",
+                            "replaces": "src/repro/kernels/qmm.py:158", **r})
     # qmm at slice 8's shapes: [serve-dense]'s four runs and
     # [serve-legacy-dense]'s serve() call, by (packed, M, K, N)
     dense_path = collections.Counter()
@@ -4171,6 +4380,7 @@ def main():
               "mamba_agreement": mamba_small, "ssd_errors": ssd_errors,
               "serve_dense": {k: v[2] for k, v in dense.items()},
               "serve_legacy_dense": legacy_dense, "dense_agreement": dense_small,
+              "serve_hybrid": hybrid, "hybrid_agreement": hybrid_small,
               "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],
               "int32_ops_per_s": INT32_OPS, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

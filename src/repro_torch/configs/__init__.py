@@ -1,7 +1,7 @@
 """Architecture registry of the port. Slice 1 ports gemma-2b, slice 7
 mamba2-780m, slice 8 the rest of the dense family (gemma-7b, granite-3-8b,
-qwen2.5-14b); the other five architectures of ``repro.configs`` (hybrid,
-MoE, VLM, audio) wait for ROADMAP A6."""
+qwen2.5-14b), slice 9 the hybrid zamba2-2.7b; the other four architectures
+of ``repro.configs`` (MoE, VLM, audio) wait for ROADMAP A6."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +9,8 @@ import importlib
 
 from repro_torch.models.transformer import ModelConfig
 
-ARCH_IDS = ("gemma-2b", "gemma-7b", "granite-3-8b", "qwen2.5-14b", "mamba2-780m")
+ARCH_IDS = ("gemma-2b", "gemma-7b", "granite-3-8b", "qwen2.5-14b", "mamba2-780m",
+            "zamba2-2.7b")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
 

@@ -28,11 +28,13 @@ token-identical to vanilla decode):
       --device cpu --requests 4 --weight-bits 8 --kv-bits 8 --optimal-levels
 
 Legacy single-shot mode (``serve``: one fixed random prompt batch, prefill,
-then greedy decode) serves both families. A dense model decodes on a
+then greedy decode) serves every ported family. A dense model decodes on a
 ring-buffer KV cache of prompt + gen rows, attending in plain PyTorch as the
 reference does; mamba2-780m's prefill runs the SSD kernel, its decode the
 O(1) recurrence on the (conv, ssm) cache, which the paged engine does not
-take:
+take; the hybrid zamba2-2.7b runs both — its Mamba2 layers as mamba2's, its
+shared attention block (after every 9 layers) on one ring KV cache of
+prompt + gen rows per application, at ``--kv-bits``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
       --device cpu --legacy --kv-bits 8 --weight-bits 8 --batch 2 \
@@ -41,6 +43,12 @@ take:
       --device cpu --legacy --batch 2 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --legacy --no-reduced --weight-bits 8 --batch 4 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --device cpu --legacy --kv-bits 8 --weight-bits 8 --batch 2 \
+      --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --legacy --no-reduced --kv-bits 8 --weight-bits 8 --batch 4 \
+      --prompt-len 1024 --gen 32
 
 Multi-replica serving, prefix caching, chunked prefill and sampling wait
 for ROADMAP A3.
@@ -101,8 +109,8 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     Returns (tokens (B, prompt+gen) numpy int32, steady-state tokens/s over
     the ``gen − 1`` timed steps; NaN when ``gen`` is 1).
 
-    A dense model's ring cache holds ``prompt_len + gen`` rows, as the
-    reference's."""
+    A dense model's ring cache, and each of a hybrid model's shared
+    caches, holds ``prompt_len + gen`` rows, as the reference's."""
     dev = resolve_device(device)
     plan = _resolve_plan(plan, kv_bits, weight_bits, optimal_levels)
     cfg, params = _build(arch, reduced=reduced, plan=plan, seed=seed, device=dev)
@@ -252,8 +260,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     # legacy single-shot mode
     ap.add_argument("--legacy", action="store_true",
-                    help="fixed-batch greedy loop (ring KV cache, or the ssm "
-                         "recurrent cache)")
+                    help="fixed-batch greedy loop (ring KV cache, the ssm "
+                         "recurrent cache, or the hybrid's both)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

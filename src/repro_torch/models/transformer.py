@@ -1,16 +1,18 @@
-"""Model assembly for the dense and ssm families (port of
+"""Model assembly for the dense, ssm and hybrid families (port of
 ``repro.models.transformer``): ``ModelConfig``, ``init_params``, the
 training ``forward`` and ``loss_fn``, ``prefill`` (the paged engine's: raw
 K/V out), the single-token decode block of the dense family, and the legacy
 serve loop's ``DecodeState``, ``prefill_state``, ``init_decode_state`` and
 ``decode_step``: the dense family's ring-buffer KV cache, the ssm family's
-O(1) recurrent (conv, ssm) cache.
+O(1) recurrent (conv, ssm) cache, and the hybrid's both — Mamba2 layers
+with one shared attention block after every ``shared_attn_every`` of them,
+each application of the block on a ring cache of its own.
 
 ``lax.scan`` over stacked layers becomes a Python loop over per-layer views
 of the same stacked tensors; the training forward rematerializes each layer
 in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
-reference's ``jax.checkpoint`` does. MoE, hybrid, VLM and audio families,
-and sliding windows, wait for ROADMAP A6.
+reference's ``jax.checkpoint`` does. MoE, VLM and audio families, and
+sliding windows, wait for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # 'dense' or 'ssm' in the port
+    family: str                 # 'dense', 'ssm' or 'hybrid' in the port
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +52,7 @@ class ModelConfig:
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssd_chunk: int = 256
+    shared_attn_every: int = 0  # hybrid: the shared attention block after every k layers
     dtype: Any = torch.bfloat16
     logit_chunk: int = 512
     tie_embeddings: bool = True
@@ -75,9 +78,12 @@ class ModelConfig:
 
 def _check_family(cfg: ModelConfig):
     """The ported families: dense (tied embeddings, no window; q, k and v
-    may carry a bias) and ssm (tied embeddings). An ssm config with
-    ``kv_bits`` raises: it has no KV cache to quantize (the reference
-    ignores the request; ROADMAP C18)."""
+    may carry a bias), ssm (tied embeddings) and hybrid (tied embeddings,
+    no window). An ssm config with ``kv_bits`` raises: it has no KV cache
+    to quantize (the reference ignores the request; ROADMAP C18). A hybrid
+    config whose ``shared_attn_every`` is not a positive divisor of
+    ``n_layers`` raises (the reference dies in a reshape or a division by
+    zero)."""
     if cfg.family == "ssm" and cfg.tie_embeddings:
         if cfg.precision.kv_bits:
             raise ValueError(
@@ -85,17 +91,45 @@ def _check_family(cfg: ModelConfig):
                 "which has no KV cache to quantize (the reference ignores it; "
                 "ROADMAP C18)")
         return
+    if cfg.family == "hybrid" and cfg.tie_embeddings and not cfg.window:
+        k = cfg.shared_attn_every
+        if k <= 0 or cfg.n_layers % k:
+            raise ValueError(
+                f"{cfg.name}: a hybrid model applies its shared attention block "
+                f"after every shared_attn_every layers, which must divide "
+                f"n_layers={cfg.n_layers}; got shared_attn_every={k}")
+        return
     if cfg.family != "dense" or cfg.window or not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: only the dense family with tied embeddings and no "
-            "window, and the ssm family, are ported (ROADMAP A6)")
+            "window, the ssm family and the hybrid family without a window "
+            "are ported (ROADMAP A6)")
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether the hybrid's shared attention block runs after layer ``i``."""
+    return cfg.family == "hybrid" and (i + 1) % cfg.shared_attn_every == 0
+
+
+def _init_attn_block(gen, cfg: ModelConfig, **kw) -> Params:
+    """A pre-norm attention + MLP block (``ln1``, ``attn``, ``ln2``,
+    ``mlp``): a dense layer, stacked with ``lead=(L,)``, or the hybrid's
+    shared block."""
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, **kw),
+        "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, qkv_bias=cfg.qkv_bias, **kw),
+        "ln2": init_rmsnorm(cfg.d_model, **kw),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
+    }
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random weights with the reference's distributions, drawn from an
     explicit ``torch.Generator`` on ``device`` (default ``cuda``; the numbers
     differ from ``jax.random`` — bridge JAX params with ``interop`` to
-    compare). Layer weights are stacked (L, …)."""
+    compare). Layer weights are stacked (L, …); the hybrid's shared block
+    ``shared_attn`` is one unstacked block."""
     from repro_torch import resolve_device
 
     _check_family(cfg)
@@ -109,21 +143,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
                                 device=dev),
         "final_norm": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
     }
-    if cfg.family == "ssm":
-        params["layers"] = {"norm": init_rmsnorm(cfg.d_model, **kw),
-                            "mamba": ssm_mod.init_mamba2(gen, cfg.ssm_spec, **kw)}
+    if cfg.family == "dense":
+        params["layers"] = _init_attn_block(gen, cfg, **kw)
         return params
-    return {
-        **params,
-        "layers": {
-            "ln1": init_rmsnorm(cfg.d_model, **kw),
-            "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads,
-                                        cfg.n_kv_heads, cfg.head_dim,
-                                        qkv_bias=cfg.qkv_bias, **kw),
-            "ln2": init_rmsnorm(cfg.d_model, **kw),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
-        },
-    }
+    params["layers"] = {"norm": init_rmsnorm(cfg.d_model, **kw),
+                        "mamba": ssm_mod.init_mamba2(gen, cfg.ssm_spec, **kw)}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_attn_block(gen, cfg, dtype=dt, device=dev)
+    return params
 
 
 def layer_views(params: Params, cfg: ModelConfig) -> list[Params]:
@@ -145,12 +172,20 @@ def final_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Ten
     return _readout(params, cfg, rmsnorm(params["final_norm"], h))
 
 
+def _attn_block_kv(cfg: ModelConfig, blk: Params, x: torch.Tensor):
+    """A prompt through a pre-norm attention + MLP block: (out, post-RoPE
+    K, V)."""
+    a_out, (k, v) = attn.attention_block(blk["attn"], rmsnorm(blk["ln1"], x),
+                                         cfg.attn_spec, return_kv=True)
+    h = x + a_out
+    return h + mlp(blk["mlp"], rmsnorm(blk["ln2"], h), cfg.mlp_act), k, v
+
+
 def _layer_fwd(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return x + ssm_mod.mamba2_forward(layer["mamba"], rmsnorm(layer["norm"], x),
                                           cfg.ssm_spec)
-    h = x + attn.attention_block(layer["attn"], rmsnorm(layer["ln1"], x), cfg.attn_spec)
-    return h + mlp(layer["mlp"], rmsnorm(layer["ln2"], h), cfg.mlp_act)
+    return _attn_block_kv(cfg, layer, x)[0]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -159,7 +194,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     recomputed in the backward when ``cfg.remat`` (the saved state is one
     (B, S, d) carry per layer). The ssm family runs forward only: the SSD
     kernel has no backward, so on the card its gradient raises (ROADMAP
-    A6, ssm training); the plain scan on the CPU is differentiable."""
+    A6, ssm training); the plain scan on the CPU is differentiable. The
+    hybrid runs its shared attention block after every
+    ``shared_attn_every`` Mamba2 layers, not rematerialized, as the
+    reference's segment scan does."""
     _check_family(cfg)
     if cfg.precision.act_bits:
         raise NotImplementedError(
@@ -168,11 +206,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
             "rather than ignore a requested channel (ROADMAP C9; the "
             "activation channel itself is precision.act_quant)")
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
-    for layer in unstack_layers(params["layers"], cfg.n_layers):
+    for i, layer in enumerate(unstack_layers(params["layers"], cfg.n_layers)):
         if cfg.remat:
             x = checkpoint(_layer_fwd, cfg, layer, x, use_reentrant=False)
         else:
             x = _layer_fwd(cfg, layer, x)
+        if _shared_after(cfg, i):
+            x = _attn_block_kv(cfg, params["shared_attn"], x)[0]
     return rmsnorm(params["final_norm"], x)
 
 
@@ -208,11 +248,15 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     keeps positions ≤ last_pos unaffected by the padding. The legacy loop's
     ring cache comes from :func:`prefill_state`.
 
-    The ssm family returns (logits, :class:`DecodeState`) instead: every
-    layer's ``MambaCache`` stacked (conv (L, B, K−1, conv_dim), ssm (L, B,
-    H, P, N) f32), ``step`` the prompt length — decode continues from it."""
+    The ssm and hybrid families return (logits, :class:`DecodeState`)
+    instead: every layer's ``MambaCache`` stacked (conv (L, B, K−1,
+    conv_dim), ssm (L, B, H, P, N) f32), ``step`` the prompt length —
+    decode continues from it; the hybrid's ``shared`` holds one ring KV
+    cache of S rows per application of its shared block, stacked, at
+    ``cfg.precision.kv_bits`` (:func:`prefill_state` reserves rows for
+    decode to append to)."""
     _check_family(cfg)
-    if cfg.family == "ssm":
+    if cfg.family != "dense":
         return _prefill_ssm(params, tokens, cfg, last_pos, layers)
     if cfg.precision.kv_bits:
         raise NotImplementedError(
@@ -229,10 +273,7 @@ def _prefill_dense(params, tokens, cfg, last_pos, layers):
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
     ks, vs = [], []
     for layer in layers:
-        a_out, (k, v) = attn.attention_block(
-            layer["attn"], rmsnorm(layer["ln1"], x), cfg.attn_spec, return_kv=True)
-        h = x + a_out
-        x = h + mlp(layer["mlp"], rmsnorm(layer["ln2"], h), cfg.mlp_act)
+        x, k, v = _attn_block_kv(cfg, layer, x)
         ks.append(k)
         vs.append(v)
     pos = x.shape[1] - 1 if last_pos is None else int(last_pos)
@@ -248,10 +289,13 @@ def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     :class:`~repro_torch.models.attention.KVCache` of stacked (L, …)
     planes, sized ``max(S, pad_to)`` rows and quantized at
     ``cfg.precision.kv_bits``; the ssm family's is :func:`prefill`'s
-    (``pad_to`` unused)."""
+    (``pad_to`` unused); the hybrid's is :func:`prefill`'s with its shared
+    caches sized ``max(S, pad_to)`` rows. The legacy loop writes a decoded
+    row at ``min(length, rows − 1)``: without ``pad_to`` > S the first step
+    overwrites the last prompt row, as the reference's."""
     _check_family(cfg)
-    if cfg.family == "ssm":
-        return _prefill_ssm(params, tokens, cfg, last_pos, layers)
+    if cfg.family != "dense":
+        return _prefill_ssm(params, tokens, cfg, last_pos, layers, pad_to)
     logits, ks, vs = _prefill_dense(params, tokens, cfg, last_pos, layers)
     caches = [attn.prefill_cache_from_kv(k, v, kv_bits=cfg.precision.kv_bits,
                                          pad_to=pad_to) for k, v in zip(ks, vs)]
@@ -272,7 +316,9 @@ def decode_layer_block(cfg: ModelConfig, layer: Params, h: torch.Tensor,
 
 class DecodeState(typing.NamedTuple):
     """Per-layer caches + step counter. ``layers`` is one cache of stacked
-    (L, …) tensors: a ``KVCache`` (dense) or a ``MambaCache`` (ssm)."""
+    (L, …) tensors: a ``KVCache`` (dense) or a ``MambaCache`` (ssm,
+    hybrid); ``shared`` the hybrid's ``KVCache`` of stacked (L / k, …)
+    planes, one per application of its shared block."""
 
     layers: Any
     shared: Any = None
@@ -294,18 +340,28 @@ def _kv_layer(cache: attn.KVCache, i: int) -> attn.KVCache:
     return attn.KVCache(*[None if t is None else t[i] for t in cache])
 
 
-def _prefill_ssm(params, tokens, cfg, last_pos, layers):
+def _prefill_ssm(params, tokens, cfg, last_pos, layers, pad_to=0):
+    """The Mamba2 stack's prompt forward (ssm and hybrid): every layer's
+    cache and, after every ``shared_attn_every`` layers of a hybrid, the
+    shared block with its KV quantized into a ring cache of
+    ``max(S, pad_to)`` rows."""
     layers = layers if layers is not None else layer_views(params, cfg)
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
-    caches = []
-    for layer in layers:
+    caches, shared = [], []
+    for i, layer in enumerate(layers):
         out, mc = ssm_mod.mamba2_forward(layer["mamba"], rmsnorm(layer["norm"], x),
                                          cfg.ssm_spec, return_state=True)
         x = x + out
         caches.append(mc)
+        if _shared_after(cfg, i):
+            x, k, v = _attn_block_kv(cfg, params["shared_attn"], x)
+            shared.append(attn.prefill_cache_from_kv(
+                k, v, kv_bits=cfg.precision.kv_bits, pad_to=pad_to))
     pos = x.shape[1] - 1 if last_pos is None else int(last_pos)
     logits = final_logits(params, cfg, x[:, pos:pos + 1])[:, 0]
-    return logits, DecodeState(_stack_caches(caches), step=tokens.shape[1])
+    return logits, DecodeState(_stack_caches(caches),
+                               shared=_stack_kv(shared) if shared else None,
+                               step=tokens.shape[1])
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
@@ -314,20 +370,29 @@ def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
     The dense family's is an empty ring-buffer KV cache of ``smax`` rows a
     layer at ``cfg.precision.kv_bits``. The ssm family's cache is O(1) in
     the sequence (``smax`` is unused); its conv cache is bf16 whatever the
-    compute dtype, as in the reference."""
+    compute dtype, as in the reference. The hybrid has the ssm family's
+    caches and one ring KV cache of ``smax`` rows per application of its
+    shared block."""
     from repro_torch import resolve_device
 
     _check_family(cfg)
     dev = resolve_device(device)
-    if cfg.family == "dense":
+
+    def kv_caches(n):
         one = attn.init_kv_cache(batch, smax, cfg.n_kv_heads, cfg.head_dim,
                                  kv_bits=cfg.precision.kv_bits, dtype=cfg.dtype,
                                  device=dev)
-        return DecodeState(_stack_kv([one] * cfg.n_layers), step=0)
+        return _stack_kv([one] * n)
+
+    if cfg.family == "dense":
+        return DecodeState(kv_caches(cfg.n_layers), step=0)
     one = ssm_mod.init_mamba_cache(batch, cfg.ssm_spec, device=dev)
+    shared = (kv_caches(cfg.n_layers // cfg.shared_attn_every)
+              if cfg.family == "hybrid" else None)
     return DecodeState(ssm_mod.MambaCache(
         conv=one.conv.expand(cfg.n_layers, *one.conv.shape).clone(),
-        ssm=one.ssm.expand(cfg.n_layers, *one.ssm.shape).clone()), step=0)
+        ssm=one.ssm.expand(cfg.n_layers, *one.ssm.shape).clone()), shared=shared,
+        step=0)
 
 
 def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
@@ -337,26 +402,36 @@ def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
     new state's tensors are new, so a discarded step leaves it as it was.
     The dense family appends each layer's K/V row to its ring cache and
     attends in plain PyTorch (``attention_decode_step``), as the
-    reference does."""
+    reference does; the hybrid does so in its shared block, on the cache
+    of that application."""
     _check_family(cfg)
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
+
+    def attend_block(blk, x, kv: attn.KVCache, i: int, out: list):
+        """``x`` through attention block ``blk`` on cache ``i`` of ``kv``;
+        the new cache goes to ``out``."""
+        def attend(z):
+            a_out, cache = attn.attention_decode_step(blk["attn"], z, _kv_layer(kv, i),
+                                                      cfg.attn_spec)
+            out.append(cache)
+            return a_out
+        return decode_layer_block(cfg, blk, x, attend)
+
     caches = []
     if cfg.family == "dense":
         for i, layer in enumerate(layer_views(params, cfg)):
-            def attend(z, layer=layer, i=i):
-                out, cache = attn.attention_decode_step(
-                    layer["attn"], z, _kv_layer(state.layers, i), cfg.attn_spec)
-                caches.append(cache)
-                return out
-
-            x = decode_layer_block(cfg, layer, x, attend)
+            x = attend_block(layer, x, state.layers, i, caches)
         return final_logits(params, cfg, x), DecodeState(_stack_kv(caches),
                                                          step=state.step + 1)
+    shared = []
     for i, layer in enumerate(layer_views(params, cfg)):
         cache = ssm_mod.MambaCache(state.layers.conv[i], state.layers.ssm[i])
         y, new_cache = ssm_mod.mamba2_decode_step(
             layer["mamba"], rmsnorm(layer["norm"], x), cache, cfg.ssm_spec)
         x = x + y
         caches.append(new_cache)
-    return final_logits(params, cfg, x), DecodeState(_stack_caches(caches),
-                                                     step=state.step + 1)
+        if _shared_after(cfg, i):
+            x = attend_block(params["shared_attn"], x, state.shared, len(shared), shared)
+    return final_logits(params, cfg, x), DecodeState(
+        _stack_caches(caches), shared=_stack_kv(shared) if shared else None,
+        step=state.step + 1)

@@ -71,8 +71,8 @@ from repro_torch.serve import pages as pg
 
 SUPPORTED_FAMILIES = ("dense",)
 # families whose caches the reference's engine does not page either (it
-# raises the same ValueError); the ssm family serves through the legacy loop,
-# ``launch.serve.serve``
+# raises the same ValueError); the ssm and hybrid families serve through the
+# legacy loop, ``launch.serve.serve``
 UNPAGED_FAMILIES = ("ssm", "hybrid", "vlm")
 
 

@@ -39,7 +39,11 @@ kernel (f32 sums in another order; at bf16 y rounds once more), its state
 their f32 operands split exactly into three bf16 pieces), the same against
 the tensor cores' order in torch, and two calls bit-equal; the
 reduced mamba2-780m served on the card against the CPU's plain path:
-greedy tokens equal; and the threefry plane kernel bit-exact against
+greedy tokens equal, at f32 logits within 1e-4 of the largest; the
+reduced zamba2-2.7b, both fed the CPU's greedy tokens: at f32 with raw KV
+rows logits within 1e-4, and greedy tokens equal wherever the CPU's top
+two logits lie more than 2e-3 (f32) or 2e-2 (bf16) of the largest apart
+(int KV codes can round a step apart on the two); and the threefry plane kernel bit-exact against
 ``prng``'s int64 path (int32, int64 and f32 output, one key and batched
 keys, ragged n, a counter window across 2³²), and the keyed entries of
 ``ds_quant`` and ``qadamw_update`` bit-equal to their rand entries on the
@@ -83,6 +87,12 @@ DENSE_QMM_SHAPES = [(4, 12800, 4096), (112, 12800, 4096), (4, 13824, 5120),
                     (112, 13824, 5120), (4, 24576, 3072), (112, 3072, 24576),
                     (4, 5120, 1024), (112, 4096, 1024), (4, 5120, 13824),
                     (112, 5120, 5120), (4, 3072, 4096), (112, 4096, 12800)]
+# slice 9's zamba2-2.7b: in_proj (N 10448, a ragged last tile), out_proj,
+# the shared block's q/k/v/o, gate/up and down, at decode M 4 (SIMT) and
+# the prefill's M 4096 (tensor cores)
+HYBRID_QMM_SHAPES = [(m, k, n) for m in (4, 4096)
+                     for k, n in ((2560, 10448), (5120, 2560), (2560, 2560),
+                                  (2560, 10240), (10240, 2560))]
 
 
 @pytest.fixture
@@ -126,6 +136,13 @@ def test_qmm_kernel_matches_plain(cuda, m, k, n, bits, packed, xdtype):
 @pytest.mark.parametrize("m,k,n", DENSE_QMM_SHAPES)
 @pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
 def test_qmm_kernel_matches_plain_at_dense_family_shapes(cuda, m, k, n, bits, packed):
+    _check_qmm(cuda, m, k, n, bits, packed, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", HYBRID_QMM_SHAPES)
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+def test_qmm_kernel_matches_plain_at_hybrid_shapes(cuda, m, k, n, bits, packed):
     _check_qmm(cuda, m, k, n, bits, packed, torch.bfloat16)
 
 
@@ -1130,9 +1147,10 @@ def test_quantized_table_engine_card_matches_cpu_plain_path(cuda, bits):
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_STATE_TOL = 1e-4
 # (B, NC, L, H, P, N): ragged tiles, mamba2-780m's prefill (4 chunks of 256)
-# and the single 1023-row chunk of a 1023-token prompt
+# and the single 1023-row chunk of a 1023-token prompt, and both at
+# zamba2-2.7b's 80 heads and state 64 (half of phase 1's state block)
 SSD_SHAPES = [(2, 3, 40, 3, 16, 16), (1, 2, 33, 2, 64, 8), (4, 4, 256, 48, 64, 128),
-              (4, 1, 1023, 48, 64, 128)]
+              (4, 1, 1023, 48, 64, 128), (4, 4, 256, 80, 64, 64), (4, 1, 1023, 80, 64, 64)]
 
 
 def _ssd_inputs(dev, b, nc, L, h, p, n, dtype, init=False, strided=False, seed=0):
@@ -1248,6 +1266,70 @@ def test_mamba_legacy_path_card_matches_cpu_plain_path(cuda, dtype, bits):
         if dtype == torch.float32:
             for a, b in zip(lc, lp):
                 torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bits,kv_bits", [
+    (torch.float32, 0, 0), (torch.float32, 8, 0), (torch.float32, 4, 0),
+    (torch.float32, 8, 8), (torch.float32, 4, 4), (torch.bfloat16, 8, 8)])
+def test_hybrid_legacy_path_card_matches_cpu_plain_path(cuda, dtype, bits, kv_bits):
+    """Reduced zamba2-2.7b (4 Mamba2 layers, the shared attention block after
+    every 2) at weight bits ``bits`` and KV bits ``kv_bits``: prefill
+    (prompt 40 = one chunk, 64 = four of 16; shared caches of prompt + 9
+    rows) and 8 greedy decode steps on the card (``ssd_chunk_scan``,
+    ``qmm``) and on the CPU's plain path from the same weights, both fed
+    the CPU's greedy tokens: at f32 with raw KV rows logits within 1e-4 of
+    the largest; everywhere the greedy tokens equal where the CPU's top two
+    logits lie more than 2e-3 (f32) or 2e-2 (bf16) of the largest apart —
+    with int KV a row within f32 noise of a rounding boundary rounds a code
+    apart on the two, and bf16 runs part by ~1e-2, so a nearer tie may
+    break either way."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+
+    plan = PrecisionPlan(model_bits=bits, kv_bits=kv_bits,
+                         model_storage="int" if bits else "fake")
+    cfg = dataclasses.replace(configs.get_reduced("zamba2-2.7b", dtype=dtype, precision=plan),
+                              ssd_chunk=16)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    if bits:
+        params = quantize_param_tree(params, bits=bits)
+    step = make_serve_step(cfg)
+    tie = 2e-3 if dtype == torch.float32 else 2e-2
+    for s in (40, 64):
+        prompt = torch.from_numpy(np.random.default_rng(s).integers(0, cfg.vocab_size, (2, s)))
+        runs, fed = {}, None
+        for where in ("cpu", cuda):
+            p = params if where == "cpu" else _to(params, cuda)
+            before = (tssd.launches, tqmm.launches)
+            with registry.using("cuda"):      # on the CPU: the kernels' plain versions
+                logits, state = make_prefill_step(cfg, pad_to=s + 9)(
+                    p, {"tokens": prompt.to(where)})
+                lgs = [logits]
+                for i in range(8):
+                    tok = torch.argmax(lgs[-1], -1) if fed is None else fed[i]
+                    lg, _, state = step(p, state, tok.to(where, torch.int32)[:, None])
+                    lgs.append(lg[:, 0])
+            runs[str(where)] = [t.float().cpu()[:, :cfg.vocab_size] for t in lgs]
+            fed = [torch.argmax(t, -1) for t in runs["cpu"]]
+            if where != "cpu":
+                n_seg = cfg.n_layers // cfg.shared_attn_every
+                assert tssd.launches == before[0] + cfg.n_layers
+                assert tqmm.launches == before[1] + (9 * (2 * cfg.n_layers + 7 * n_seg)
+                                                     if bits else 0)
+        for a, b in zip(runs[str(cuda)], runs["cpu"]):
+            scale = b.abs().max().item()
+            top2 = b.topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tie * scale
+            assert torch.equal(a.argmax(-1)[clear], b.argmax(-1)[clear])
+            if dtype == torch.float32 and not kv_bits:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
 
 
 def _to(tree, dev):

@@ -349,12 +349,20 @@ def test_more_than_one_group_raises():
                          torch.zeros(4), bm, bm, spec)
 
 
-@pytest.mark.parametrize("over", [dict(family="moe"), dict(family="hybrid"),
-                                  dict(window=8), dict(family="vlm"),
+@pytest.mark.parametrize("over", [dict(family="moe"), dict(window=8), dict(family="vlm"),
                                   dict(family="audio")])
 def test_unported_families_name_a6(over):
     cfg = tconfigs.get_reduced("gemma-2b", **over)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        TT.init_params(cfg, device="cpu")
+
+
+def test_hybrid_without_shared_attn_every_raises():
+    """The hybrid family is ported (slice 9); a hybrid config without a
+    shared attention cadence that divides its layers raises ValueError."""
+    cfg = tconfigs.get_reduced("gemma-2b", family="hybrid")
+    assert cfg.shared_attn_every == 0
+    with pytest.raises(ValueError, match="shared_attn_every"):
         TT.init_params(cfg, device="cpu")
 
 
