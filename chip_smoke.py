@@ -186,13 +186,36 @@ NVIDIA card.
    f32 and bf16, weight/KV bits 0/8/4, on the card against the CPU's plain
    path, both fed the CPU's greedy tokens (f32 logits within 1e-4 where
    the KV rows are raw; tokens equal but at near-ties);
-12. every plane the paths draw on the card takes the threefry kernel: a
+12. slice 10 — ``[kernel] qmm moe``: B5 at every (K, N) of
+   granite-moe-3b-a800m — q/o, k/v and an expert's gate/up, the router's
+   N 40 (int8 rows of 40 bytes, packed int4 rows of 20), an expert's down —
+   int8 and int4, at decode M 4, each prompt bucket and the profile's 64,
+   the dispatch's capacity 1024 and the legacy prefill's 4096; ``[kernel]
+   paged_decode_attn moe``: B10 at its (24, 8, 64) layout (D 64, R 3);
+   ``[serve-moe]``: full-width granite-moe-3b-a800m (40 experts, top 8,
+   random weights from seed 0) through ``serve_engine`` at 8/8 and 4/4 with
+   every gate of slice 1 — ``qmm`` 32 × (4 + 1 + 3 × 40) = 4000 launches a
+   decode step and a prefill, one a projection, the router and each expert
+   slice, at checked shapes; ``paged_decode_attn`` 32 a step — peak memory,
+   weight bytes, a 1-step decode profile, and at 8/8 the cuda backend
+   against the ref backend on the card, teacher-forced (tokens equal but
+   at near-ties or after a routing difference; on the same input every
+   routing difference at a near tie);
+   ``[serve-legacy-moe]``: the legacy ``serve`` at 8/8 (4 prompts of 1024:
+   the prefill's experts run at the dispatch's capacity M 1024; 32 new
+   tokens), a profiled prefill (device ms, ``qmm``'s share, each layer's
+   dropped-choice share at capacity) and 1 profiled decode step;
+   ``[check moe]``: the reduced model at f32, weight/KV bits 0/0, 8/8 and
+   4/4, engine and legacy loop (2 × 384 prompts: the dispatch) on the card
+   against the CPU's plain path, the routing captured on both sides (every
+   difference at a near tie);
+13. every plane the paths draw on the card takes the threefry kernel: a
    phase fails if ``prng`` made an int64 hash on the card in it (its
    counter, set to 0 just before each phase but the kernels'), and the main
    paths' plane launches are counted by (output, keys, size) for the
    ``kernels`` line; ``quant_adamw`` pass 2 and ``ds_quant`` run their keyed
    entries on the paths (their rand entries 0 launches);
-13. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
+14. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -257,6 +280,8 @@ ATTN_LENS = [160, 97, 33, 1]
 ATTN_DENSE_LAYOUTS = {(16, 16, 256): "gemma-7b", (32, 8, 128): "granite-3-8b",
                       (40, 8, 128): "qwen2.5-14b"}
 ATTN_LONG_LENS = [4096, 1500, 257, 0]
+# B10 at granite-moe-3b-a800m's layout (D 64, R 3), on [serve-moe]'s path
+ATTN_MOE_LAYOUT = (24, 8, 64)
 # ds_quant cases: (R, C, scale axis, s); each is bit-exact at DS_S and its
 # own s, and timed at its own s. On the paths: slice 2's gisette batch
 # (6-bit samples, s 63), [quantize-rows]' ds_quantize(scale=None) of
@@ -443,7 +468,8 @@ MAMBA_CHECK_TOL = 1e-4        # [check] f32, card vs CPU plain path, of the larg
 DENSE_WIDTH = {"gemma-2b": (18, 2048, 8, 1, 256, 16384, 256000),
                "gemma-7b": (28, 3072, 16, 16, 256, 24576, 256000),
                "granite-3-8b": (40, 4096, 32, 8, 128, 12800, 49155),
-               "qwen2.5-14b": (48, 5120, 40, 8, 128, 13824, 152064)}
+               "qwen2.5-14b": (48, 5120, 40, 8, 128, 13824, 152064),
+               "granite-moe-3b-a800m": (32, 1536, 24, 8, 64, 512, 49155)}
 DENSE_ARCHS = ("gemma-7b", "granite-3-8b", "qwen2.5-14b")
 DENSE_RUNS = (("gemma-7b", 8), ("granite-3-8b", 8), ("qwen2.5-14b", 8), ("qwen2.5-14b", 4))
 LEGACY_DENSE = dict(arch="qwen2.5-14b", weight_bits=8, kv_bits=8, batch=4, prompt_len=32,
@@ -501,6 +527,52 @@ HYBRID_CHECKS = (("float32", 0, 0), ("float32", 8, 0), ("float32", 4, 0),
                  ("bfloat16", 8, 8), ("bfloat16", 4, 4))
 HYBRID_CHECK_TOL = 1e-4
 HYBRID_TIE = {"float32": 2e-3, "bfloat16": 2e-2}
+# slice 10: full-width granite-moe-3b-a800m (32 layers, d_model 1536, 24
+# query heads and 8 KV heads of 64, 40 experts of d_ff 512, top 8; random
+# weights from seed 0) through serve_engine on the [serve] trace at
+# weight/KV bits 8/8 and 4/4, and through the legacy serve (4 prompts of
+# 1024: the prefill's 4096 tokens take the dispatch, capacity
+# ⌊4096·8/40·1.25⌋ = 1024; 32 new tokens) at 8/8
+MOE = "granite-moe-3b-a800m"
+MOE_BITS = (8, 4)
+MOE_LEGACY = dict(weight_bits=8, kv_bits=8, batch=4, prompt_len=1024, gen=32)
+MOE_CAPACITY = int(4096 * 8 / 40 * 1.25)
+# B5 at each (K, N) of the model — q and o, k and v (= an expert's gate and
+# up), the router (N 40), an expert's down — at decode M 4, each prompt
+# bucket of the trace and the decode profile's (64), the dispatch's
+# capacity and the legacy prefill's M 4096
+MOE_QMM_KN = {(1536, 1536): "q, o", (1536, 512): "k, v, expert gate, up",
+              (1536, 40): "router", (512, 1536): "expert down"}
+# [serve-moe]'s teacher-forced check: the cuda backend against the ref
+# backend on the card, 4 prompts of 64 through the engine's own prefill and
+# decode_logits, fed the ref backend's greedy tokens for MOE_FORCED_STEPS
+# steps. The two differ at bf16 (ref rounds each decoded weight to bf16,
+# B5 multiplies the exact codes and scales after). On the same input a
+# router's choices may then differ only where its k-th and (k+1)-th
+# probabilities lie within MOE_FORCED_ROUTE_TIE, which the run checks layer
+# by layer (the ref backend's router on each input the cuda run's router
+# saw): on an NVIDIA H100 80GB HBM3 at 700 W the largest such gap read
+# 7.2e-4 at 8/8 (384 of 73728 choices apart; 3.3e-4 at 4/4, which the
+# script no longer checks, for time). Along the
+# runs each swapped expert moves the stream by far more than rounding, and
+# at full width the two runs' routing parts more with every layer, so a
+# token may differ where the ref's top two logits lie within
+# HYBRID_TIE["bfloat16"] of the largest or after a routing difference of
+# its sequence; those counts are reported
+MOE_FORCED_STEPS = 8
+# decode steps a moe profile covers: a step is 4000 qmm launches and ~12k
+# device events, and torch.profiler takes ~10 s a step to read them back
+MOE_PROFILE_STEPS = 1
+MOE_FORCED_ROUTE_TIE = 2e-3
+# [check moe]: the reduced model (8 experts, top 4) at f32, card kernels vs
+# the CPU's plain path; a routing difference (an expert in one side's top k
+# and not the other's) must sit where the CPU's k-th and (k+1)-th router
+# probabilities lie within MOE_ROUTE_TIE: card and CPU sum the router's K
+# in different orders, f32 noise of ~1e-7 in a probability (on an NVIDIA
+# H100 80GB HBM3 at 700 W no choice differed at any of MOE_CHECKS)
+MOE_CHECKS = ((0, 0), (8, 8), (4, 4))
+MOE_CHECK_PROMPT = (2, 384)
+MOE_ROUTE_TIE = 1e-4
 
 
 def _fail(msg: str, code: int):
@@ -829,19 +901,40 @@ def check_paged_attn(dev, flush):
         pool = _attn_pool(dev, gen, bits, n_pages, page, hkv, d)
         rows.append(_attn_row(flush, (q, *pool, bt, lens), bits, True))
     gen = torch.Generator(device=dev).manual_seed(3)
-    for (h, hkv, d), case_lens in [*((lay, ATTN_LENS) for lay in ATTN_DENSE_LAYOUTS),
-                                   ((8, 1, 256), ATTN_LONG_LENS)]:
-        maxp = -(-max(case_lens) // page) + 1
-        n_pages = b * maxp + 1
-        q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * maxp] + 1
-        bt = perm.reshape(b, maxp).to(torch.int32)
-        lens = torch.tensor(case_lens, dtype=torch.int32, device=dev)
-        for bits in (0, 8, 4):
-            pool = _attn_pool(dev, gen, bits, n_pages, page, hkv, d)
-            rows.append(_attn_row(flush, (q, *pool, bt, lens), bits,
-                                  (h, hkv, d) in ATTN_DENSE_LAYOUTS))
+    for layout, case_lens in [*((lay, ATTN_LENS) for lay in ATTN_DENSE_LAYOUTS),
+                              ((8, 1, 256), ATTN_LONG_LENS)]:
+        rows += _attn_layout_rows(dev, flush, gen, layout, case_lens,
+                                  layout in ATTN_DENSE_LAYOUTS)
     return rows
+
+
+def _attn_layout_rows(dev, flush, gen, layout, case_lens, path, b=4, page=16):
+    """B10 rows at one (H, Hkv, D) layout, KV bits 0, 8 and 4, one row of
+    ``case_lens`` per sequence on shuffled pages."""
+    import torch
+
+    h, hkv, d = layout
+    maxp = -(-max(case_lens) // page) + 1
+    n_pages = b * maxp + 1
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * maxp] + 1
+    bt = perm.reshape(b, maxp).to(torch.int32)
+    lens = torch.tensor(case_lens, dtype=torch.int32, device=dev)
+    rows = []
+    for bits in (0, 8, 4):
+        pool = _attn_pool(dev, gen, bits, n_pages, page, hkv, d)
+        rows.append(_attn_row(flush, (q, *pool, bt, lens), bits, path))
+    return rows
+
+
+def check_paged_attn_moe(dev, flush):
+    """B10 at granite-moe-3b-a800m's layout (24 query heads, 8 KV heads of
+    64: D 64 and R 3, which no earlier path ran) at ``ATTN_LENS``, KV bits
+    0, 8 and 4: [serve-moe]'s rows."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    return _attn_layout_rows(dev, flush, gen, ATTN_MOE_LAYOUT, ATTN_LENS, True)
 
 
 def _width(cfg) -> tuple:
@@ -849,13 +942,23 @@ def _width(cfg) -> tuple:
             cfg.d_ff, cfg.vocab_size)
 
 
-def serve(bits: int, dev, checked, arch: str = "gemma-2b", tag: str = "serve"):
+def _qmm_per_layer(cfg) -> int:
+    """``qmm`` launches a layer makes in one forward of an int model: q, k,
+    v, o and gate, up, down; an moe layer's q, k, v, o, the router and
+    gate, up, down of each expert (one launch a slice)."""
+    return 4 + 1 + 3 * cfg.n_experts if cfg.family == "moe" else 7
+
+
+def serve(bits: int, dev, checked, arch: str = "gemma-2b", tag: str = "serve", extra=None,
+          profile_steps: int = 5):
     """Drive the main path once: ``serve_engine`` on full-width ``arch`` at
     weight/KV bits ``bits`` on the slice-1 trace; fail if ``qmm`` launched
     at a shape outside ``checked`` (the checked rows' keys); returns
     (launch counts, qmm shape counts, summary). The summary's peak is the
     card's allocation peak over the call (weights drawn in bf16 and
-    quantized included) above what was allocated before it."""
+    quantized included) above what was allocated before it. ``extra``,
+    given, is called on the engine after the run and the decode profile
+    (over ``profile_steps`` steps), and its dict joins the summary."""
     import torch
     from repro_torch.kernels import paged_attn as PA
     from repro_torch.kernels import qmm as Q
@@ -892,7 +995,7 @@ def serve(bits: int, dev, checked, arch: str = "gemma-2b", tag: str = "serve"):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    per_step_qmm = 7 * cfg.n_layers
+    per_step_qmm = _qmm_per_layer(cfg) * cfg.n_layers
     want_qmm = per_step_qmm * (st["decode_steps"] + st["admitted"])
     want_attn = cfg.n_layers * st["decode_steps"]
     if launches["qmm"] != want_qmm or launches["paged_decode_attn"] != want_attn:
@@ -918,7 +1021,9 @@ def serve(bits: int, dev, checked, arch: str = "gemma-2b", tag: str = "serve"):
           f"{summary['kv_pool_bytes']:,} bytes; weights {summary['weight_bytes']:,} bytes; "
           f"peak {peak / 2**30:.2f} GiB; launches qmm={launches['qmm']} {qmm_cores} "
           f"paged_decode_attn={launches['paged_decode_attn']}", flush=True)
-    summary["profile"] = profile_decode(engine)
+    summary["profile"] = profile_decode(engine, profile_steps)
+    if extra is not None:
+        summary.update(extra(engine))
     del engine
     torch.cuda.empty_cache()
     return launches, shapes, summary
@@ -4052,6 +4157,459 @@ def agree_dense(dev):
     return out
 
 
+def check_qmm_moe(dev, flush):
+    """B5 at every (K, N) of granite-moe-3b-a800m (``MOE_QMM_KN``: the
+    router's N 40 — int8 rows of 40 bytes, packed int4 rows of 20 — among
+    them), int8 and int4, at decode M 4 (SIMT), each prompt bucket of the
+    trace [serve-moe] serves and its decode profile's 64 (tensor cores),
+    the dispatch's capacity (1024: the experts of the legacy prefill) and
+    the legacy prefill's 4096 (q, k, v, o and the router)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    ms = {SERVE["max_slots"]: "decode", 64: "profile prefill"}
+    for m in sorted(_prompt_buckets(MOE)):
+        ms[m] = f"prefill, bucket {m}"
+    ms[MOE_CAPACITY] = "dispatch capacity"
+    ms[MOE_LEGACY["batch"] * MOE_LEGACY["prompt_len"]] = "legacy prefill"
+    rows = []
+    for bits in (8, 4):
+        for (k, n), what in MOE_QMM_KN.items():
+            for m, role in sorted(ms.items()):
+                rows.append(_qmm_row(dev, gen, flush, bits, m, k, n,
+                                     f" (granite-moe {what}; {role})"))
+    return rows
+
+
+@contextlib.contextmanager
+def _routing(log, local=None):
+    """Every ``moe._router_probs`` call inside appends (top-k ids,
+    probabilities) to ``log`` on the host: the routing, captured by wrapping
+    the function here, with no hook in the package. Given a list ``local``,
+    each call also appends there what the ``ref`` backend's router gives on
+    the same input (the routing compared layer by layer, where the two
+    backends see the same x)."""
+    from repro_torch.kernels import registry
+    from repro_torch.models import moe
+
+    orig = moe._router_probs
+
+    def wrapped(p, x, spec):
+        out = orig(p, x, spec)
+        log.append((out[1].cpu(), out[2].float().cpu()))
+        if local is not None:
+            with registry.using("ref"):
+                ref = orig(p, x, spec)
+            local.append((ref[1].cpu(), ref[2].float().cpu()))
+        return out
+
+    moe._router_probs = wrapped
+    try:
+        yield log
+    finally:
+        moe._router_probs = orig
+
+
+def _routing_diffs(got, want, k) -> tuple[int, float]:
+    """(routing choices that differ, the largest gap between ``want``'s k-th
+    and (k+1)-th probability at a token whose choices differ) over matched
+    router calls."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} router calls against {len(want)}")
+    n, worst = 0, 0.0
+    for (ia, _), (ib, pb) in zip(got, want):
+        sa, sb = ia.sort(-1).values, ib.sort(-1).values
+        bad = (sa != sb).any(-1)
+        if bad.any():
+            n += int((sa != sb).sum())
+            top = pb.sort(-1, descending=True).values
+            worst = max(worst, float((top[..., k - 1] - top[..., k])[bad].max()))
+    return n, worst
+
+
+def _engine_forced(eng, prompts: np.ndarray, steps: int, fed=None):
+    """Logits of one engine's own prefill (``_prefill``) and ``steps``
+    decode steps (``decode_logits``) of ``prompts`` (one a slot, lengths a
+    page multiple), each step fed ``fed[t]`` (default its own greedy
+    tokens); the pages go back to the allocator after."""
+    import torch
+    from repro_torch.serve import pages as pg
+
+    n, s = prompts.shape
+    need = pg.pages_needed(s + steps + 1, eng.page_size)
+    bt = np.zeros((eng.max_slots, eng.max_pages_per_seq), np.int32)
+    ids = []
+    for i in range(n):
+        got = eng.allocator.alloc(need)
+        ids.append(got)
+        bt[i, :need] = got
+    out = [torch.stack([eng._prefill(prompts[i], s - 1, list(bt[i, :s // eng.page_size]))
+                        for i in range(n)])]
+    active = np.arange(eng.max_slots) < n
+    for t in range(steps):
+        tok = np.zeros(eng.max_slots, np.int32)
+        tok[:n] = (out[-1].argmax(-1).cpu().numpy() if fed is None else fed[t])
+        pos = np.where(active, s + t, 0).astype(np.int32)
+        out.append(eng.decode_logits(tok, pos, bt, active)[:n])
+    for got in ids:
+        eng.allocator.free(got)
+    return [t.float().cpu() for t in out]
+
+
+def _routed(glog, wlog, n: int, L: int, steps: int, per_prompt: bool) -> np.ndarray:
+    """routed[b, t]: a routing choice of sequence b differed between the
+    two router logs in the calls behind logits t, or before. Logits 0 come
+    from the prefill — one forward of L calls of (n, S, k), or with
+    ``per_prompt`` n forwards of (1, S, k) — logits t ≥ 1 from decode step
+    t, L calls of (n, 1, k)."""
+    routed = np.zeros((n, steps + 1), bool)
+    pre = n * L if per_prompt else L
+    for c, ((ia, _), (ib, _)) in enumerate(zip(glog, wlog)):
+        rows = (ia.sort(-1).values != ib.sort(-1).values).reshape(ia.shape[0], -1).any(-1)
+        if c < pre and per_prompt:
+            routed[c // L, 0] |= bool(rows.any())
+        else:
+            routed[:, 0 if c < pre else 1 + (c - pre) // L] |= rows.numpy()[:n]
+    return np.logical_or.accumulate(routed, axis=1)
+
+
+def _fmt(x) -> str:
+    return "none" if x is None else f"{x:.3e}"
+
+
+def _forced_tokens(got, want, routed, tie: float) -> dict:
+    """Greedy tokens of two teacher-forced runs (logits lists, both fed
+    ``want``'s tokens): equal wherever ``want``'s top two logits lie more
+    than ``tie`` of the largest apart and no routing choice of the sequence
+    differed so far (``routed``); the counts, and the logits' largest gap
+    over all and over the rows whose routing never differed (None where
+    every row's did)."""
+    rel, rel_same = 0.0, None
+    tied = excused = same = 0
+    for t, (a, b) in enumerate(zip(got, want)):
+        scale = b.abs().max()
+        gap = (a - b).abs().max(-1).values / scale
+        rel = max(rel, float(gap.max()))
+        if (~routed[:, t]).any():
+            rel_same = max(rel_same or 0.0, float(gap[~routed[:, t]].max()))
+        top2 = b.topk(2, -1).values
+        clear = ((top2[:, 0] - top2[:, 1]) > tie * scale).numpy()
+        eq = (a.argmax(-1) == b.argmax(-1)).numpy()
+        tied += int((~clear).sum())
+        excused += int((~eq & clear & routed[:, t]).sum())
+        same += int((eq | ~clear | routed[:, t]).sum())
+    return {"tokens_equal": same, "of": routed.size, "near_ties": tied,
+            "excused_by_routing": excused, "logits_max_rel_diff": rel,
+            "logits_max_rel_diff_same_routing": rel_same}
+
+
+def _moe_forced(engine, dev):
+    """[serve-moe]'s teacher-forced check on the served weights: the cuda
+    backend (``qmm`` a slice, ``paged_decode_attn``) against the ref
+    backend (each stacked weight decoded to bf16, one batched product;
+    plain paged attention), each in an engine of its own on the card, both
+    fed the ref backend's greedy tokens (``MOE_FORCED_STEPS`` steps after 4
+    prefills of 64). The two differ at bf16, so a router's choices may
+    differ where its k-th and (k+1)-th probabilities nearly tie: on the
+    same input (the ref backend's router run on every input the cuda run's
+    router saw) every such difference must lie within
+    ``MOE_FORCED_ROUTE_TIE``. An expert swapped there moves the stream by
+    far more than rounding, so a sequence's greedy token must equal the
+    ref's wherever the ref's top two logits lie more than
+    ``HYBRID_TIE["bfloat16"]`` of the largest apart and no routing choice
+    of that sequence differed so far between the two runs. The tokens so
+    excused, the routing differences (by layer) and the largest gaps are
+    counted and reported."""
+    import torch
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = engine.cfg
+    prompts = np.stack([r.prompt for r in make_trace(4, cfg.vocab_size, min_prompt=64,
+                                                     max_prompt=64, seed=11)]).astype(np.int32)
+    n, L = len(prompts), cfg.n_layers
+    runs, fed, local = {}, None, []
+    for backend in ("ref", "cuda"):
+        eng = ServeEngine(engine.params, cfg, max_slots=n, page_size=SERVE["page_size"],
+                          max_seq_len=64 + MOE_FORCED_STEPS + SERVE["page_size"],
+                          backend=backend, device=dev)
+        with _routing([], local if backend == "cuda" else None) as log:
+            lgs = _engine_forced(eng, prompts, MOE_FORCED_STEPS, fed)
+        runs[backend] = ([t[:, :cfg.vocab_size] for t in lgs], log)
+        fed = [t.argmax(-1).numpy() for t in runs["ref"][0][:-1]]
+        del eng
+    (got, glog), (want, wlog) = runs["cuda"], runs["ref"]
+    n_route, gap = _routing_diffs(glog, wlog, cfg.top_k)
+    n_local, gap_local = _routing_diffs(glog, local, cfg.top_k)
+    by_layer = [_routing_diffs(glog[i::L], wlog[i::L], cfg.top_k)[0] for i in range(L)]
+    res = _forced_tokens(got, want, _routed(glog, wlog, n, L, MOE_FORCED_STEPS, True),
+                         HYBRID_TIE["bfloat16"])
+    res.update(routing_choices_apart=n_route,
+               routing_choices=sum(t[0].numel() for t in wlog), routing_largest_gap=gap,
+               routing_apart_by_layer=by_layer, local_routing_choices_apart=n_local,
+               local_routing_largest_gap=gap_local, seconds=time.perf_counter() - t0)
+    print(f"[serve-moe] cuda vs ref backend on the card, teacher-forced ({MOE_FORCED_STEPS} "
+          f"steps after {n} prefills of 64): greedy tokens equal {res['tokens_equal']}/"
+          f"{res['of']} ({res['near_ties']} within {HYBRID_TIE['bfloat16']:g} of a tie, "
+          f"{res['excused_by_routing']} after a routing difference); logits max rel diff "
+          f"{res['logits_max_rel_diff']:.3e} ({_fmt(res['logits_max_rel_diff_same_routing'])} "
+          f"where the routing never differed); routing choices apart {n_route} of "
+          f"{res['routing_choices']} (by layer: {by_layer}), largest ref gap between the "
+          f"k-th and (k+1)-th probability there {gap:.3e}; on the same input, layer by "
+          f"layer: {n_local} apart, largest ref gap {gap_local:.3e} (bound "
+          f"{MOE_FORCED_ROUTE_TIE:g}); {res['seconds']:.1f} s", flush=True)
+    if res["tokens_equal"] != res["of"] or gap_local >= MOE_FORCED_ROUTE_TIE:
+        raise AssertionError(f"[serve-moe] cuda vs ref: {res}")
+    return {"forced": res}
+
+
+def serve_moe(dev, checked):
+    """Slice 10's main path: ``serve_engine`` on full-width
+    granite-moe-3b-a800m at weight/KV bits 8/8 and 4/4 on the slice-1
+    trace with every gate of ``[serve]`` (via :func:`serve`; ``qmm``
+    32 × (4 + 1 + 3 × 40) = 4000 launches a decode step and a prefill, one
+    a projection, the router and each expert slice, at checked shapes;
+    ``paged_decode_attn`` 32 a step), peak memory, weight code bytes and a
+    profile of ``MOE_PROFILE_STEPS`` decode steps; at 8/8 then the
+    teacher-forced cuda-vs-ref check
+    (:func:`_moe_forced`)."""
+    import torch
+
+    out = {}
+    for bits in MOE_BITS:
+        forced = (lambda e: _moe_forced(e, dev)) if bits == MOE_BITS[0] else None
+        launches, shapes, summary = serve(bits, dev, checked, MOE, "serve-moe",
+                                          extra=forced, profile_steps=MOE_PROFILE_STEPS)
+        st = summary
+        prof = st["profile"]
+        print(f"[serve-moe] {bits}/{bits}: decode {st['mean_decode_step_ms']:.2f} ms/step, "
+              f"{st['decode_tokens_per_s']:.1f} tok/s; device "
+              f"{prof['device_ms_per_step'] or float('nan'):.3f} ms/step, idle share "
+              f"{prof['device_idle_share'] or float('nan'):.3f}, "
+              f"{prof['device_events_per_step']:.0f} device events/step; qmm launches a "
+              f"decode step {st['launches_per_decode_step']['qmm']}, paged_decode_attn "
+              f"{launches['paged_decode_attn']}; peak {st['peak_bytes'] / 2**30:.2f} GiB; "
+              f"weight bytes {st['weight_bytes'] / 1e9:.3f} GB; serve_engine call "
+              f"{st['wall_s']:.1f} s", flush=True)
+        if st["launches_per_decode_step"]["qmm"] != 4000:
+            raise AssertionError(f"[serve-moe] {st['launches_per_decode_step']}")
+        out[f"{bits}/{bits}"] = (launches, shapes, summary)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _drops_by_layer(log, n_layers, capacity, k):
+    """The share of each layer's routing choices that the dispatch drops at
+    ``capacity``, from the first ``n_layers`` router calls of ``log`` (one
+    prefill forward)."""
+    out = []
+    for ids, probs in log[:n_layers]:
+        counts = np.bincount(ids.reshape(-1).numpy(), minlength=probs.shape[-1])
+        out.append(float(np.maximum(counts - capacity, 0).sum() / ids.numel()))
+    return out
+
+
+def serve_legacy_moe(dev, checked):
+    """The legacy loop on the moe family: ``launch.serve.serve`` on
+    full-width granite-moe-3b-a800m at ``MOE_LEGACY`` (4 prompts of 1024,
+    ring KV cache of prompt + gen rows, int8 weights and KV), the ``qmm``
+    and ``paged_decode_attn`` counters set to 0 just before and read just
+    after: ``qmm`` 4000 per prefill and per decode step (the warm-up step
+    included) at checked shapes — the prefill's experts at the dispatch's
+    capacity (M 1024), which shows it took the dispatch — and
+    ``paged_decode_attn`` 0. Then, on the same weights rebuilt from the
+    seed, a profiled prefill (device ms, ``qmm``'s share; serve() warmed
+    its kernels and allocator) with each layer's dropped-choice share at
+    capacity, and ``MOE_PROFILE_STEPS`` profiled decode steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.quant import tree_nbytes
+
+    kw = dict(MOE_LEGACY)
+    bsz, plen, gen = kw["batch"], kw["prompt_len"], kw["gen"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_counters()
+    PA.launches = 0
+    t0 = time.perf_counter()
+    tokens, tps = S.serve(MOE, reduced=False, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"qmm": Q.launches, "paged_decode_attn": PA.launches}
+    cores = _core_gate(f"[serve-legacy-moe] {MOE}", Q, checked)
+    shapes = dict(Q.shape_launches)
+    plan = S._resolve_plan(None, kw["kv_bits"], kw["weight_bits"])
+    t1 = time.perf_counter()
+    cfg, params = S._build(MOE, reduced=False, plan=plan, seed=0, device=dev)
+    build_s = time.perf_counter() - t1
+    L, E = cfg.n_layers, cfg.n_experts
+    if _width(cfg) != DENSE_WIDTH[MOE] or (E, cfg.top_k) != (40, 8):
+        raise AssertionError(f"not full-width {MOE}: {cfg}")
+    if tokens.shape != (bsz, plen + gen) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"[serve-legacy-moe] tokens {tokens.shape}, range "
+                             f"{tokens.min()}..{tokens.max()}")
+    want = {"qmm": _qmm_per_layer(cfg) * L * (gen + 1), "paged_decode_attn": 0}
+    if launches != want:
+        raise AssertionError(f"[serve-legacy-moe] launches {launches}, expected {want}")
+    dispatched = sum(c for (packed, m, k, n), c in shapes.items() if m == MOE_CAPACITY)
+    if dispatched != 3 * E * L:
+        raise AssertionError(f"[serve-legacy-moe] {dispatched} qmm launches at the "
+                             f"dispatch's capacity M {MOE_CAPACITY}, expected {3 * E * L}")
+    prompts = prng.randint(prng.fold_in(prng.PRNGKey(0), 1), (bsz, plen), 0,
+                           cfg.vocab_size, device=dev)
+    prefill = make_prefill_step(cfg, pad_to=plen + gen)
+    t1 = time.perf_counter()
+    with _routing([]) as log, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel, n_events = _device_kernels(prof)
+    device_ms = sum(by_kernel.values())
+    qmm_ms = sum(v for k_, v in by_kernel.items() if "qmm" in k_)
+    drops = _drops_by_layer(log, L, MOE_CAPACITY, cfg.top_k)
+    first = torch.argmax(logits, -1).cpu().numpy()
+    if not np.array_equal(first, tokens[:, plen]):
+        raise AssertionError(f"[serve-legacy-moe] rebuilt prefill's tokens {first} vs "
+                             f"serve()'s {tokens[:, plen]}")
+    prof_dec = profile_steps(make_serve_step(cfg), params, state,
+                             torch.as_tensor(first, device=dev).to(torch.int32)[:, None],
+                             MOE_PROFILE_STEPS)
+    profiles_s = time.perf_counter() - t1
+    _core_gate("[serve-legacy-moe] checks", Q, checked)
+    run = {"arch": MOE, **kw, "tokens_shape": list(tokens.shape),
+           "decode_ms_per_step": 1e3 * bsz / tps, "decode_tokens_per_s": tps,
+           "prefill_ms": prefill_ms, "prefill_device_ms": device_ms or None,
+           "prefill_qmm_device_ms": qmm_ms or None, "prefill_device_events": n_events,
+           "prefill_top_kernels_ms": dict(sorted(by_kernel.items(),
+                                                 key=lambda kv: -kv[1])[:8]),
+           "dropped_choice_share_by_layer": drops, "capacity": MOE_CAPACITY,
+           "peak_bytes": peak, "wall_s": wall, "launches": launches,
+           "qmm_launches_by_core": cores,
+           "qmm_shape_launches": [[*k_, v] for k_, v in shapes.items()],
+           "cache_bytes_per_sequence": tree_nbytes(state.layers._asdict()) // bsz,
+           "weight_bytes": tree_nbytes(params), "decode_profile": prof_dec}
+    share = f"{qmm_ms / device_ms:.3f}" if device_ms else "not measured"
+    print(f"[serve-legacy-moe] {MOE} full width, weight/kv bits {kw['weight_bits']}/"
+          f"{kw['kv_bits']}: tokens {tuple(tokens.shape)} in vocab; prefill {prefill_ms:.1f} ms, "
+          f"device {device_ms:.2f} ms, qmm {qmm_ms:.2f} ms (share {share}); decode "
+          f"{run['decode_ms_per_step']:.2f} ms/step, {tps:.1f} tok/s, idle share "
+          f"{prof_dec['device_idle_share'] or float('nan'):.3f}; peak {peak / 2**30:.2f} GiB; "
+          f"launches {launches} {cores} ({dispatched} at the dispatch's capacity "
+          f"M {MOE_CAPACITY}); serve() {wall:.1f} s, weights rebuilt in {build_s:.1f} s, "
+          f"profiles {profiles_s:.1f} s; dropped-choice share by layer "
+          + ", ".join(f"{d:.4f}" for d in drops), flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    return run
+
+
+def agree_moe(dev):
+    """The reduced granite-moe-3b-a800m (8 experts, top 4) at weight/KV
+    bits ``MOE_CHECKS``, on the card (kernels) against the CPU's plain path
+    from the same weights, both the ``cuda`` backend, the router's calls
+    captured on both sides, each run fed the CPU's greedy tokens:
+
+    * the paged engine (4 prompts of 24 through its own prefill and 8
+      ``decode_logits`` steps): at f32, and at bf16 for raw KV (B10 takes
+      raw KV pages in bf16 only);
+    * the legacy loop at f32 on 2 × 384 prompts (768 tokens: the prefill's
+      MoE layers take the dispatch) + 8 decode steps.
+
+    Greedy tokens equal wherever the CPU's top two logits lie more than
+    ``HYBRID_TIE`` of the largest apart and no routing choice of the
+    sequence differed so far; every routing difference where the CPU's
+    k-th and (k+1)-th probabilities lie within ``MOE_ROUTE_TIE``; the
+    legacy loop's raw-KV logits within ``HYBRID_CHECK_TOL`` of the largest
+    on every sequence whose routing never differed."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    b, s = MOE_CHECK_PROMPT
+    legacy_prompt = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (b, s)))
+    engine_prompts = np.random.default_rng(2).integers(0, 256, (4, 24)).astype(np.int32)
+    for bits, kv_bits in MOE_CHECKS:
+        plan = PrecisionPlan(model_bits=bits, kv_bits=kv_bits,
+                             model_storage="int" if bits else "fake")
+        cfg = configs.get_reduced(MOE, dtype=torch.float32, precision=plan)
+        ecfg = cfg if kv_bits else dataclasses.replace(cfg, dtype=torch.bfloat16)
+        trees = {}
+        for c in {cfg, ecfg}:
+            p = T.init_params(c, seed=0, device="cpu")
+            trees[c.dtype] = quantize_param_tree(p, bits=bits) if bits else p
+        L, row = cfg.n_layers, {}
+        for what in ("engine", "legacy"):
+            lgs, logs, fed = {}, {}, None
+            for label, where in (("cpu", "cpu"), ("card", dev)):
+                with _routing([]) as log:
+                    if what == "engine":
+                        eng = ServeEngine(trees[ecfg.dtype], ecfg, max_slots=4, page_size=8,
+                                          max_seq_len=48, backend="cuda", device=where)
+                        got = _engine_forced(eng, engine_prompts, 8, fed)
+                    else:
+                        p = _tree_to(trees[cfg.dtype], where)
+                        step = make_serve_step(cfg)
+                        with registry.using("cuda"):      # CPU: the plain versions
+                            logits, state = make_prefill_step(cfg, pad_to=s + 9)(
+                                p, {"tokens": legacy_prompt.to(where)})
+                            got = [logits]
+                            for i in range(8):
+                                tok = torch.argmax(got[-1], -1) if fed is None else fed[i]
+                                lg, _, state = step(p, state,
+                                                    tok.to(where, torch.int32)[:, None])
+                                got.append(lg[:, 0])
+                        got = [t.float().cpu() for t in got]
+                lgs[label] = [t[:, :cfg.vocab_size] for t in got]
+                logs[label] = log
+                fed = [t.argmax(-1) for t in lgs["cpu"]]
+                if what == "engine":
+                    fed = [t.numpy() for t in fed]
+            n_route, gap = _routing_diffs(logs["card"], logs["cpu"], cfg.top_k)
+            n = len(lgs["cpu"][0])
+            dname = "bfloat16" if what == "engine" and not kv_bits else "float32"
+            res = _forced_tokens(lgs["card"], lgs["cpu"],
+                                 _routed(logs["card"], logs["cpu"], n, L, 8, what == "engine"),
+                                 HYBRID_TIE[dname])
+            res.update(routing_choices_apart=n_route, routing_largest_gap=gap, dtype=dname)
+            gated = what == "legacy" and not kv_bits
+            print(f"[check] reduced {MOE} {dname} weight/KV bits {bits or 'raw'}/"
+                  f"{kv_bits or 'raw'} {what}: card vs CPU plain path, fed the CPU's tokens — "
+                  f"greedy tokens equal {res['tokens_equal']}/{res['of']} ({res['near_ties']} "
+                  f"within {HYBRID_TIE[dname]:g} of a tie, {res['excused_by_routing']} after a "
+                  f"routing difference); routing choices apart {n_route} (largest CPU gap "
+                  f"there {gap:.3e}, bound {MOE_ROUTE_TIE:g}); logits max rel diff "
+                  f"{res['logits_max_rel_diff']:.2e}, "
+                  f"{_fmt(res['logits_max_rel_diff_same_routing'])} where the routing never "
+                  f"differed ({'tol %g' % HYBRID_CHECK_TOL if gated else 'reported'})",
+                  flush=True)
+            if res["tokens_equal"] != res["of"] or gap >= MOE_ROUTE_TIE or \
+                    (gated and (res["logits_max_rel_diff_same_routing"] or 0.0)
+                     > HYBRID_CHECK_TOL):
+                raise AssertionError(f"[check moe] bits {bits}/{kv_bits} {what}: {res}")
+            row[what] = res
+        out[f"{bits}_{kv_bits}"] = row
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -4144,6 +4702,8 @@ def main():
     dense_qmm_rows = phase("kernel qmm dense", check_qmm_dense, dev, flush)
     hybrid_ssd_rows = phase("kernel ssd zamba2", check_ssd, dev, flush, HYBRID_SSD_CASES)
     hybrid_qmm_rows = phase("kernel qmm zamba2", check_qmm_ssm, dev, flush, "zamba2-2.7b")
+    moe_qmm_rows = phase("kernel qmm moe", check_qmm_moe, dev, flush)
+    moe_attn_rows = phase("kernel paged_decode_attn moe", check_paged_attn_moe, dev, flush)
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -4187,6 +4747,12 @@ def main():
     hybrid = phase("serve-hybrid", serve_ssm, dev, hybrid_ssd_rows, hybrid_qmm_rows,
                    "zamba2-2.7b")
     hybrid_small = phase("check hybrid", agree_hybrid, dev)
+    # slice 10: every qmm launch of [serve-moe] and [serve-legacy-moe] must
+    # be at a shape checked for it
+    moe_checked = {r["key"] for r in moe_qmm_rows}
+    moe = phase("serve-moe", serve_moe, dev, moe_checked)
+    legacy_moe = phase("serve-legacy-moe", serve_legacy_moe, dev, moe_checked)
+    moe_small = phase("check moe", agree_moe, dev)
 
     # threefry launches on the main paths: the phases' reads (tf_path), and
     # the runs whose counters are reset again before a later run of the
@@ -4357,6 +4923,26 @@ def main():
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
+    # qmm at slice 10's shapes: [serve-moe]'s two runs and
+    # [serve-legacy-moe]'s serve() call, by (packed, M, K, N); B10 at
+    # granite-moe's layout: [serve-moe]'s run at the row's KV bits
+    moe_path = collections.Counter()
+    for run in moe.values():
+        moe_path.update(run[1])
+    moe_path.update({tuple(k[:-1]): k[-1] for k in legacy_moe["qmm_shape_launches"]})
+    for r in moe_qmm_rows:
+        r["launches"] = moe_path.get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm.cu",
+                        "replaces": "src/repro/kernels/qmm.py:158", **r})
+    for r in moe_attn_rows:
+        bits = r.pop("kv_bits")
+        r.pop("path"), r.pop("layout")
+        r["launches"] = sum(run[0]["paged_decode_attn"] for run in moe.values()
+                            if run[2]["kv_bits"] == bits)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+                        "replaces": "src/repro/kernels/paged_attn.py:195", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "core")
     extra_keys = ("matmul_ms", "plain_code_share", "exact_code_share", "before_ms",
@@ -4381,6 +4967,8 @@ def main():
               "serve_dense": {k: v[2] for k, v in dense.items()},
               "serve_legacy_dense": legacy_dense, "dense_agreement": dense_small,
               "serve_hybrid": hybrid, "hybrid_agreement": hybrid_small,
+              "serve_moe": {k: v[2] for k, v in moe.items()},
+              "serve_legacy_moe": legacy_moe, "moe_agreement": moe_small,
               "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],
               "int32_ops_per_s": INT32_OPS, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

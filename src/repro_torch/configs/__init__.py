@@ -1,7 +1,8 @@
 """Architecture registry of the port. Slice 1 ports gemma-2b, slice 7
 mamba2-780m, slice 8 the rest of the dense family (gemma-7b, granite-3-8b,
-qwen2.5-14b), slice 9 the hybrid zamba2-2.7b; the other four architectures
-of ``repro.configs`` (MoE, VLM, audio) wait for ROADMAP A6."""
+qwen2.5-14b), slice 9 the hybrid zamba2-2.7b, slice 10 the moe
+granite-moe-3b-a800m; the other three architectures of ``repro.configs``
+(mixtral-8x7b's window, VLM, audio) wait for ROADMAP A6."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,7 @@ import importlib
 from repro_torch.models.transformer import ModelConfig
 
 ARCH_IDS = ("gemma-2b", "gemma-7b", "granite-3-8b", "qwen2.5-14b", "mamba2-780m",
-            "zamba2-2.7b")
+            "zamba2-2.7b", "granite-moe-3b-a800m")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
 

@@ -56,20 +56,29 @@ class KernelBackend:
         decodes the same way there. A bitplane weight's decode ends in a
         contraction over its planes, which XLA does not fuse into the dot:
         it stays bf16 for either ``x``, and so does a level-table weight,
-        whose decode is a table lookup."""
-        from repro_torch.quant import QTensor
-        from repro_torch.quant.quant_dense import mm_f32
+        whose decode is a table lookup.
 
-        if qt.ndim != 2:
+        A stacked (S, K, N) weight (the MoE expert axis) contracts with x
+        (…, S, M, K), the stack dimension at x's −3 axis as the reference's
+        ``matmul_eq`` has it: one decode of the whole stack, then one
+        f32-accumulated batched product."""
+        from repro_torch.quant import QTensor
+        from repro_torch.quant.quant_dense import bmm_f32, mm_f32
+
+        if qt.ndim not in (2, 3):
             raise NotImplementedError(
-                "quant_dense takes 2-D weights; slice stacked layers with "
-                "QTensor.index (stacked experts: ROADMAP A6)")
+                f"quant_dense takes a 2-D weight or a stack (S, K, N), got {qt!r}; "
+                "slice stacked layers with QTensor.index")
+        if qt.ndim == 3 and x.ndim < 3:
+            raise ValueError(f"x {tuple(x.shape)} needs >= 3 dims for the stacked {qt!r}")
         if x.dtype == torch.float32 and qt.scheme.layout == "dense" \
                 and qt.scheme.grid != "levels":
             w = QTensor(qt.codes, qt.scale.to(torch.bfloat16), qt.scheme).decode()
         else:
             w = qt.decode(torch.bfloat16)
-        return mm_f32(x, w.t() if transpose else w)
+        if transpose:
+            w = w.transpose(-1, -2)
+        return mm_f32(x, w) if qt.ndim == 2 else bmm_f32(x, w)
 
     def quant_dense_out_q(self, x, qt, key, *, bits: int = 8, out_dtype=None):
         """``quant_dense`` with a quantize epilogue: the §2.2 double-sampled
@@ -189,13 +198,22 @@ class _CudaBackend(KernelBackend):
         through ``qmm_bitplane``. A weight without a kernel plan
         (:meth:`_qd_plan`: a level table, wide codes, per-row scales) takes
         the reference's decode fallback — decode, then one matmul — as the
-        reference's ``pallas`` backend does."""
+        reference's ``pallas`` backend does.
+
+        A stacked (S, K, N) int8 or packed-int4 weight (the MoE expert
+        axis) runs one ``qmm`` launch per slice on views of the stack, x's
+        slice i at its −3 axis, as the reference's ``pallas`` backend
+        does. The stacked weights that have no kernel — bitplane words
+        (ROADMAP A1), level tables, or any weight without a plan, and
+        ``transpose=True`` (ROADMAP A6) — take the decode path on CPU
+        tensors and raise on the card."""
+        if qt.ndim == 3:
+            return self._quant_dense_stacked(x, qt, transpose)
         if qt.scheme.layout == "bitplane":
             return self._quant_dense_bitplane(x, qt, transpose)
         if qt.ndim != 2:
             raise NotImplementedError(
-                f"cuda quant_dense takes 2-D weights, got {qt!r} "
-                "(stacked experts: ROADMAP A6)")
+                f"cuda quant_dense takes a 2-D weight or a stack (S, K, N), got {qt!r}")
         plan = self._qd_plan(qt)
         if plan is None:
             return KernelBackend.quant_dense(self, x, qt, transpose=transpose)
@@ -204,25 +222,49 @@ class _CudaBackend(KernelBackend):
         codes, scale, packed = plan
         return ops.quant_dense_apply(x, codes, scale, packed=packed, transpose=transpose)
 
+    def _quant_dense_stacked(self, x, qt, transpose: bool):
+        """One ``qmm`` launch per slice of a stacked int weight; see
+        :meth:`quant_dense` for what raises on the card."""
+        plan = None if transpose else self._qd_plan(qt)
+        if plan is None:
+            if qt.codes.is_cuda:
+                item = "A1" if qt.scheme.layout == "bitplane" else "A6"
+                raise NotImplementedError(
+                    f"cuda quant_dense of the stacked {qt!r} (transpose={transpose}): "
+                    "stacked bitplane, level-table and transposed weights have no "
+                    f"kernel yet (ROADMAP {item})")
+            return KernelBackend.quant_dense(self, x, qt, transpose=transpose)
+        if x.ndim < 3:
+            raise ValueError(f"x {tuple(x.shape)} needs >= 3 dims for the stacked {qt!r}")
+        from . import ops
+
+        codes, scale, packed = plan
+        xs = x.movedim(-3, 0)
+        return torch.stack([ops.quant_dense_apply(xs[i], codes[i], scale[i], packed=packed)
+                            for i in range(codes.shape[0])], dim=x.ndim - 3)
+
     @staticmethod
     def _qd_plan(qt):
-        """Kernel-ready (codes, scale (1, N) f32, packed) of a 2-D int or
-        zipml weight, or None where the reference's ``pallas`` backend takes
-        the decode fallback: level tables, codes of another dtype, scales
-        that are neither scalar nor per column (``registry._qd_plan``)."""
+        """Kernel-ready (codes, scale (*S, 1, N) f32, packed) of a 2-D or
+        stacked (S, K, N) int or zipml weight, or None where the
+        reference's ``pallas`` backend takes the decode fallback: level
+        tables, codes of another dtype, scales that are neither scalar nor
+        per column (``registry._qd_plan``). A stack's slice i is
+        (codes[i], scale[i]): views."""
         sch = qt.scheme
-        if sch.grid == "levels" or sch.layout == "bitplane" or qt.ndim != 2:
+        if sch.grid == "levels" or sch.layout == "bitplane" or qt.ndim not in (2, 3):
             return None
         packed = bool(sch.packed)
         if qt.codes.dtype != (torch.uint8 if packed else torch.int8):
             return None
+        stack = tuple(qt.codes.shape[:-2])
         n = qt.codes.shape[-1] * (2 if packed else 1)
         scale = qt.scale.to(torch.float32)
         if tuple(scale.shape) in ((), (1,), (1, 1)):
-            scale = scale.reshape(1, 1).expand(1, n)
+            scale = scale.reshape((1,) * (len(stack) + 2)).expand(*stack, 1, n)
         elif tuple(scale.shape) in ((n,), (1, n)):
-            scale = scale.reshape(1, n)
-        else:
+            scale = scale.reshape(1, n).expand(*stack, 1, n)
+        elif tuple(scale.shape) != (*stack, 1, n):
             return None
         if sch.grid == "zipml":
             from repro_torch.quant.qtensor import div_exact
@@ -236,10 +278,10 @@ class _CudaBackend(KernelBackend):
         (M, N), uint32)``-exact plane, its high and low 16 bits — the
         reference ``pallas`` backend's draw, a different stream from
         ``ref``'s split-key pair. The weights the reference sends to its
-        base path go there here too, and only those: no kernel plan (which
-        takes in ``ndim != 2``) or ``bits > 8``."""
+        base path go there here too, and only those: no kernel plan, a
+        stacked weight or ``bits > 8``."""
         plan = self._qd_plan(qt)
-        if plan is None or bits > 8:
+        if plan is None or qt.ndim != 2 or bits > 8:
             return KernelBackend.quant_dense_out_q(self, x, qt, key, bits=bits,
                                                    out_dtype=out_dtype)
         from repro_torch import prng

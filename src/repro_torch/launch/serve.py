@@ -50,6 +50,21 @@ prompt + gen rows per application, at ``--kv-bits``:
       --legacy --no-reduced --kv-bits 8 --weight-bits 8 --batch 4 \
       --prompt-len 1024 --gen 32
 
+The moe granite-moe-3b-a800m serves through both: the paged engine, whose
+steps take the MoE block's dense path (every expert on every token), and
+the legacy loop, whose prefill above 512 tokens takes the
+capacity-bounded dispatch; every stacked expert weight runs one ``qmm``
+launch per expert slice on the card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+      --device cpu --requests 4 --weight-bits 8 --kv-bits 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+      --device cpu --legacy --weight-bits 8 --kv-bits 8 --batch 2 \
+      --prompt-len 300 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+      --no-reduced --weight-bits 8 --kv-bits 8 --page-size 16 \
+      --max-prompt 128 --max-new 32 --requests 8
+
 Multi-replica serving, prefix caching, chunked prefill and sampling wait
 for ROADMAP A3.
 """

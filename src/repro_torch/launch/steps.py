@@ -10,8 +10,8 @@ from repro_torch.models import transformer as T
 
 def make_prefill_step(cfg: T.ModelConfig, pad_to: int = 0):
     """``prefill_step(params, {"tokens": (B, S)}) → (last logits, DecodeState)``;
-    the dense family's ring cache and the hybrid's shared caches get
-    ``max(S, pad_to)`` rows."""
+    the dense and moe families' ring cache and the hybrid's shared caches
+    get ``max(S, pad_to)`` rows."""
     def prefill_step(params, batch):
         return T.prefill_state(params, batch["tokens"], cfg, pad_to=pad_to)
     return prefill_step

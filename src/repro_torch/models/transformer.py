@@ -1,18 +1,20 @@
-"""Model assembly for the dense, ssm and hybrid families (port of
+"""Model assembly for the dense, moe, ssm and hybrid families (port of
 ``repro.models.transformer``): ``ModelConfig``, ``init_params``, the
 training ``forward`` and ``loss_fn``, ``prefill`` (the paged engine's: raw
-K/V out), the single-token decode block of the dense family, and the legacy
-serve loop's ``DecodeState``, ``prefill_state``, ``init_decode_state`` and
-``decode_step``: the dense family's ring-buffer KV cache, the ssm family's
-O(1) recurrent (conv, ssm) cache, and the hybrid's both — Mamba2 layers
-with one shared attention block after every ``shared_attn_every`` of them,
-each application of the block on a ring cache of its own.
+K/V out), the single-token decode block of the dense and moe families, and
+the legacy serve loop's ``DecodeState``, ``prefill_state``,
+``init_decode_state`` and ``decode_step``: the dense and moe families'
+ring-buffer KV cache, the ssm family's O(1) recurrent (conv, ssm) cache,
+and the hybrid's both — Mamba2 layers with one shared attention block
+after every ``shared_attn_every`` of them, each application of the block
+on a ring cache of its own. The moe family is the dense layer with its MLP
+replaced by the MoE block (``models/moe``).
 
 ``lax.scan`` over stacked layers becomes a Python loop over per-layer views
 of the same stacked tensors; the training forward rematerializes each layer
 in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
-reference's ``jax.checkpoint`` does. MoE, VLM and audio families, and
-sliding windows, wait for ROADMAP A6.
+reference's ``jax.checkpoint`` does. VLM and audio families, and sliding
+windows, wait for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.quant import PrecisionPlan
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
                      layer_view, mlp, rmsnorm, unembed, unstack_layers)
@@ -34,14 +37,17 @@ from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # 'dense', 'ssm' or 'hybrid' in the port
+    family: str                 # 'dense', 'moe', 'ssm' or 'hybrid' in the port
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
     head_dim: int
-    d_ff: int
+    d_ff: int                   # moe: each expert's
     vocab_size: int
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
     window: int = 0
     qkv_bias: bool = False
     mlp_act: str = "silu"
@@ -71,6 +77,11 @@ class ModelConfig:
                              q_chunk=self.q_chunk)
 
     @property
+    def moe_spec(self) -> moe_mod.MoESpec:
+        return moe_mod.MoESpec(self.n_experts, self.top_k, self.d_model, self.d_ff,
+                               act=self.mlp_act)
+
+    @property
     def ssm_spec(self) -> ssm_mod.SSMSpec:
         return ssm_mod.SSMSpec(self.d_model, d_state=self.ssm_state,
                                head_dim=self.ssm_head_dim, chunk=self.ssd_chunk)
@@ -78,12 +89,14 @@ class ModelConfig:
 
 def _check_family(cfg: ModelConfig):
     """The ported families: dense (tied embeddings, no window; q, k and v
-    may carry a bias), ssm (tied embeddings) and hybrid (tied embeddings,
-    no window). An ssm config with ``kv_bits`` raises: it has no KV cache
-    to quantize (the reference ignores the request; ROADMAP C18). A hybrid
-    config whose ``shared_attn_every`` is not a positive divisor of
-    ``n_layers`` raises (the reference dies in a reshape or a division by
-    zero)."""
+    may carry a bias), moe (tied embeddings, no window), ssm (tied
+    embeddings) and hybrid (tied embeddings, no window). An ssm config with
+    ``kv_bits`` raises: it has no KV cache to quantize (the reference
+    ignores the request; ROADMAP C18). A hybrid config whose
+    ``shared_attn_every`` is not a positive divisor of ``n_layers`` raises
+    (the reference dies in a reshape or a division by zero), and so does an
+    moe config that routes to fewer than one expert or to more experts
+    than it has."""
     if cfg.family == "ssm" and cfg.tie_embeddings:
         if cfg.precision.kv_bits:
             raise ValueError(
@@ -99,10 +112,16 @@ def _check_family(cfg: ModelConfig):
                 f"after every shared_attn_every layers, which must divide "
                 f"n_layers={cfg.n_layers}; got shared_attn_every={k}")
         return
+    if cfg.family == "moe" and cfg.tie_embeddings and not cfg.window:
+        if cfg.top_k < 1 or cfg.n_experts < cfg.top_k:
+            raise ValueError(
+                f"{cfg.name}: an moe model routes each token to top_k >= 1 of its "
+                f"n_experts experts; got n_experts={cfg.n_experts}, top_k={cfg.top_k}")
+        return
     if cfg.family != "dense" or cfg.window or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with tied embeddings and no "
-            "window, the ssm family and the hybrid family without a window "
+            f"{cfg.name}: only the dense and moe families with tied embeddings and "
+            "no window, the ssm family and the hybrid family without a window "
             "are ported (ROADMAP A6)")
 
 
@@ -114,14 +133,19 @@ def _shared_after(cfg: ModelConfig, i: int) -> bool:
 def _init_attn_block(gen, cfg: ModelConfig, **kw) -> Params:
     """A pre-norm attention + MLP block (``ln1``, ``attn``, ``ln2``,
     ``mlp``): a dense layer, stacked with ``lead=(L,)``, or the hybrid's
-    shared block."""
-    return {
+    shared block; an moe layer has the MoE block ``moe`` in place of
+    ``mlp``."""
+    blk = {
         "ln1": init_rmsnorm(cfg.d_model, **kw),
         "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.head_dim, qkv_bias=cfg.qkv_bias, **kw),
         "ln2": init_rmsnorm(cfg.d_model, **kw),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
     }
+    if cfg.family == "moe":
+        blk["moe"] = moe_mod.init_moe(gen, cfg.moe_spec, **kw)
+    else:
+        blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+    return blk
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
@@ -143,7 +167,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
                                 device=dev),
         "final_norm": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
     }
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         params["layers"] = _init_attn_block(gen, cfg, **kw)
         return params
     params["layers"] = {"norm": init_rmsnorm(cfg.d_model, **kw),
@@ -172,13 +196,21 @@ def final_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Ten
     return _readout(params, cfg, rmsnorm(params["final_norm"], h))
 
 
+def _ffn(cfg: ModelConfig, blk: Params, z: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward half on the normed stream: the MoE block of
+    an moe layer, else the gated MLP."""
+    if cfg.family == "moe":
+        return moe_mod.moe_block(blk["moe"], z, cfg.moe_spec)
+    return mlp(blk["mlp"], z, cfg.mlp_act)
+
+
 def _attn_block_kv(cfg: ModelConfig, blk: Params, x: torch.Tensor):
-    """A prompt through a pre-norm attention + MLP block: (out, post-RoPE
-    K, V)."""
+    """A prompt through a pre-norm attention + MLP (or MoE) block: (out,
+    post-RoPE K, V)."""
     a_out, (k, v) = attn.attention_block(blk["attn"], rmsnorm(blk["ln1"], x),
                                          cfg.attn_spec, return_kv=True)
     h = x + a_out
-    return h + mlp(blk["mlp"], rmsnorm(blk["ln2"], h), cfg.mlp_act), k, v
+    return h + _ffn(cfg, blk, rmsnorm(blk["ln2"], h)), k, v
 
 
 def _layer_fwd(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
@@ -256,7 +288,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``cfg.precision.kv_bits`` (:func:`prefill_state` reserves rows for
     decode to append to)."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, tokens, cfg, last_pos, layers)
     if cfg.precision.kv_bits:
         raise NotImplementedError(
@@ -285,7 +317,7 @@ def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   layers: list | None = None):
     """Prefill a prompt (B, S) for the legacy serve loop: (logits (B, V) at
     ``last_pos``, :class:`DecodeState`) as the reference's ``prefill``
-    returns them. The dense family's state holds one ring-buffer
+    returns them. The dense and moe families' state holds one ring-buffer
     :class:`~repro_torch.models.attention.KVCache` of stacked (L, …)
     planes, sized ``max(S, pad_to)`` rows and quantized at
     ``cfg.precision.kv_bits``; the ssm family's is :func:`prefill`'s
@@ -294,7 +326,7 @@ def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     row at ``min(length, rows − 1)``: without ``pad_to`` > S the first step
     overwrites the last prompt row, as the reference's."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, tokens, cfg, last_pos, layers, pad_to)
     logits, ks, vs = _prefill_dense(params, tokens, cfg, last_pos, layers)
     caches = [attn.prefill_cache_from_kv(k, v, kv_bits=cfg.precision.kv_bits,
@@ -305,9 +337,10 @@ def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 def decode_layer_block(cfg: ModelConfig, layer: Params, h: torch.Tensor,
                        attend) -> torch.Tensor:
     """One decoder layer for single-token decode: pre-norm attention
-    residual (``attend(z)`` owns the cache update), then pre-norm MLP."""
+    residual (``attend(z)`` owns the cache update), then pre-norm MLP (or
+    MoE block: B tokens a step take its dense path)."""
     h = h + attend(rmsnorm(layer["ln1"], h))
-    return h + mlp(layer["mlp"], rmsnorm(layer["ln2"], h), cfg.mlp_act)
+    return h + _ffn(cfg, layer, rmsnorm(layer["ln2"], h))
 
 
 # ---------------------------------------------------------------------------
@@ -367,8 +400,8 @@ def _prefill_ssm(params, tokens, cfg, last_pos, layers, pad_to=0):
 def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
                       device=None) -> DecodeState:
     """Zero caches for ``batch`` sequences on ``device`` (default ``cuda``).
-    The dense family's is an empty ring-buffer KV cache of ``smax`` rows a
-    layer at ``cfg.precision.kv_bits``. The ssm family's cache is O(1) in
+    The dense and moe families' is an empty ring-buffer KV cache of ``smax``
+    rows a layer at ``cfg.precision.kv_bits``. The ssm family's cache is O(1) in
     the sequence (``smax`` is unused); its conv cache is bf16 whatever the
     compute dtype, as in the reference. The hybrid has the ssm family's
     caches and one ring KV cache of ``smax`` rows per application of its
@@ -384,7 +417,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
                                  device=dev)
         return _stack_kv([one] * n)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecodeState(kv_caches(cfg.n_layers), step=0)
     one = ssm_mod.init_mamba_cache(batch, cfg.ssm_spec, device=dev)
     shared = (kv_caches(cfg.n_layers // cfg.shared_attn_every)
@@ -400,8 +433,8 @@ def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
     """One serve step of the legacy loop: tokens (B, 1) → (logits (B, 1, V)
     f32 with the vocab pad masked, new state). ``state`` is only read: the
     new state's tensors are new, so a discarded step leaves it as it was.
-    The dense family appends each layer's K/V row to its ring cache and
-    attends in plain PyTorch (``attention_decode_step``), as the
+    The dense and moe families append each layer's K/V row to its ring
+    cache and attend in plain PyTorch (``attention_decode_step``), as the
     reference does; the hybrid does so in its shared block, on the cache
     of that application."""
     _check_family(cfg)
@@ -418,7 +451,7 @@ def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
         return decode_layer_block(cfg, blk, x, attend)
 
     caches = []
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i, layer in enumerate(layer_views(params, cfg)):
             x = attend_block(layer, x, state.layers, i, caches)
         return final_logits(params, cfg, x), DecodeState(_stack_kv(caches),

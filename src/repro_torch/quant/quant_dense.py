@@ -96,6 +96,24 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (…, S, M, K) · b (S, K, N) → (…, S, M, N) f32 with f32
+    accumulation: the stacked product of ``jnp.einsum("...smk,skn->...smn",
+    preferred_element_type=f32)`` (the MoE expert axis S rides on both
+    operands). On the card, half-precision operands go to one batched GEMM
+    with an f32 output (forward only: no stacked weight is trained);
+    elsewhere both operands widen to f32, which is exact for the
+    products."""
+    if a.is_cuda and a.dtype == b.dtype and _half(a) \
+            and "dtype" in torch.ops.aten.bmm.overloads():
+        s, (m, k) = b.shape[0], a.shape[-2:]
+        lead = a.shape[:-3]
+        a3 = a.movedim(-3, 0).reshape(s, -1, k)
+        y = torch.bmm(a3, b, out_dtype=torch.float32)
+        return y.reshape(s, *lead, m, b.shape[-1]).movedim(0, -3)
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
 def _backend(backend, device):
     from repro_torch.kernels import registry
 

@@ -69,7 +69,7 @@ from repro_torch.models.layers import apply_rope, dense, embed
 from repro_torch.quant import PrecisionPlan, QTensor, tree_nbytes
 from repro_torch.serve import pages as pg
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "moe")
 # families whose caches the reference's engine does not page either (it
 # raises the same ValueError); the ssm and hybrid families serve through the
 # legacy loop, ``launch.serve.serve``

@@ -29,6 +29,11 @@ def make_grads_fn(cfg: T.ModelConfig, model_channel: Channel, accum_steps: int =
     if accum_steps != 1:
         raise NotImplementedError("gradient accumulation (accum_steps > 1) is not "
                                   "ported (ROADMAP A8)")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: training an moe model is not ported (ROADMAP A6(e): the "
+            "experts' bf16 weight gradient, the load-balance term, stacked "
+            "ShipWeight and qmm_t per expert); the port serves it")
 
     def grads_of(params, batch, kq):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)

@@ -185,7 +185,10 @@ def test_quant_dense_both_backends_match_reference(xdt, bits):
 @pytest.mark.parametrize("backend", ["ref", "cuda"])
 def test_quant_dense_transpose_and_stacked_fall_back_on_cpu(backend):
     """Transposed and stacked bitplane weights have no kernel: on CPU tensors
-    they take the decode path (the reference's fallback)."""
+    they take the decode path (the reference's fallback; on the card they
+    raise naming ROADMAP A1, ``test_torch_kernels_gpu.py``). A stacked
+    (S, K, N) weight contracts x (S, M, K) slice by slice, as the
+    reference's ``matmul_eq`` has it (ROADMAP A6(a))."""
     from repro_torch.kernels import registry as treg
 
     jq, tq = _both(_w((32, 64), sd=0.1), 4)
@@ -194,9 +197,11 @@ def test_quant_dense_transpose_and_stacked_fall_back_on_cpu(backend):
                                          backend="ref"))
     got = treg.get(backend).quant_dense(torch.from_numpy(g), tq, transpose=True)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=1e-6)
-    stacked = tquant.encode(torch.from_numpy(_w((2, 32, 64))), tquant.QScheme.bitplane(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.get(backend).quant_dense(torch.from_numpy(_w((5, 32))), stacked)
+    jstacked, stacked = _both(_w((2, 32, 64), sd=0.1), 4)
+    x = _w((2, 5, 32), seed=4)
+    want = np.asarray(jquant.quant_dense(jnp.asarray(x), jstacked, backend="ref"))
+    got = treg.get(backend).quant_dense(torch.from_numpy(x), stacked)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=1e-6)
 
 
 def _tree(seed=0):

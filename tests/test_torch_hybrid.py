@@ -229,6 +229,61 @@ def test_decode_steps_match_reference(kv_bits, shape):
                                       np.asarray(jtok[:, 0]))
 
 
+def test_kv_divergence_starts_in_the_mamba2_sums():
+    """Where the shared block's int KV codes start to part from the
+    reference's (ROADMAP C22; ``scripts/hybrid_kv_divergence.py`` prints the
+    whole table): the embedding is bit-equal; the first Mamba2 segment, fed
+    the same input, already parts (its f32 sums run in another order than
+    XLA's); and the shared block itself, fed the reference's own input,
+    rounds every int8 and int4 K/V code as the reference does — so the
+    codes that ``CODE_FLIPS`` allows come from the Mamba2 stream, not from
+    the block."""
+    from repro.models import attention as jattn
+    from repro.models import ssm as jssm
+    from repro.models.layers import embed as jembed
+    from repro.models.layers import rmsnorm as jrmsnorm
+    from repro_torch.models import ssm as tssm
+    from repro_torch.models.layers import embed as tembed
+    from repro_torch.models.layers import layer_view, rmsnorm
+    from repro_torch.quant.qtensor import unpack_int4
+    from repro_torch.serve.pages import quant_rows
+
+    jcfg, tcfg, jp, tp = _pair("f32")
+    toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 20))
+    k = jcfg.shared_attn_every
+    hj = jembed(jp["embed"], jnp.asarray(toks, jnp.int32)).astype(jnp.float32)
+    with torch.no_grad():
+        ht = tembed(tp["embed"], torch.from_numpy(toks), torch.float32).to(torch.float32)
+        np.testing.assert_array_equal(np32(ht), np32(hj))
+
+        def jbody(h, layer):
+            out, _ = jssm.mamba2_forward(layer["mamba"], jrmsnorm(layer["norm"], h),
+                                         jcfg.ssm_spec, return_state=True)
+            return h + out, None
+
+        seg = jax.tree.map(lambda a: a[:k], jp["layers"])
+        hj = jax.jit(lambda s, h: jax.lax.scan(jbody, h, s)[0])(seg, hj)
+        for i in range(k):
+            layer = layer_view(tp["layers"], i)
+            out, _ = tssm.mamba2_forward(layer["mamba"], rmsnorm(layer["norm"], ht),
+                                         tcfg.ssm_spec, return_state=True)
+            ht = ht + out
+        gap = float(np.abs(np32(ht) - np32(hj)).max() / np.abs(np32(hj)).max())
+        assert 0 < gap < TOL["f32"]
+
+        blk = jp["shared_attn"]
+        _, (kj, vj) = jax.jit(lambda b, h: jattn.attention_block(
+            b["attn"], jrmsnorm(b["ln1"], h), jcfg.attn_spec, return_kv=True))(blk, hj)
+        _, kt, vt = TT._attn_block_kv(tcfg, tp["shared_attn"], torch.from_numpy(np32(hj)))
+        for bits in (8, 4):
+            for got, want in ((kt, kj), (vt, vj)):
+                a = quant_rows(got, bits)[0]
+                b = quant_rows(torch.from_numpy(np32(want)), bits)[0]
+                if bits == 4:
+                    a, b = unpack_int4(a), unpack_int4(b)
+                assert torch.equal(a, b), bits
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_decode_chain_matches_reference(shape):
     """The port's own state carried through ``STEPS`` greedy steps from its

@@ -49,6 +49,8 @@ keys, ragged n, a counter window across 2³²), and the keyed entries of
 ``ds_quant`` and ``qadamw_update`` bit-equal to their rand entries on the
 same key's ``prng.bits`` plane (they share the hash and the body).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -93,6 +95,15 @@ DENSE_QMM_SHAPES = [(4, 12800, 4096), (112, 12800, 4096), (4, 13824, 5120),
 HYBRID_QMM_SHAPES = [(m, k, n) for m in (4, 4096)
                      for k, n in ((2560, 10448), (5120, 2560), (2560, 2560),
                                   (2560, 10240), (10240, 2560))]
+
+
+# slice 10's granite-moe-3b-a800m: the router (K 1536, N 40: int8 rows of
+# 40 bytes, packed int4 rows of 20 — no multiple of 16 — in a mostly masked
+# tensor-core tile), an expert's gate/up (1536, 512) and down (512, 1536),
+# at decode M 4, a prompt bucket (M 64), the dispatch's capacity (M 1024)
+# and the legacy prefill (M 4096)
+MOE_QMM_SHAPES = [(m, k, n) for m in (4, 64, 1024, 4096)
+                  for k, n in ((1536, 40), (1536, 512), (512, 1536))]
 
 
 @pytest.fixture
@@ -144,6 +155,63 @@ def test_qmm_kernel_matches_plain_at_dense_family_shapes(cuda, m, k, n, bits, pa
 @pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
 def test_qmm_kernel_matches_plain_at_hybrid_shapes(cuda, m, k, n, bits, packed):
     _check_qmm(cuda, m, k, n, bits, packed, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", MOE_QMM_SHAPES)
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_qmm_kernel_matches_plain_at_moe_shapes(cuda, m, k, n, bits, packed, xdtype):
+    _check_qmm(cuda, m, k, n, bits, packed, xdtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+def test_stacked_quant_dense_launches_qmm_per_expert(cuda, bits, packed):
+    """A stacked (E, K, N) int weight: one ``qmm`` launch per expert slice,
+    on views of the stack (no copy of the codes), equal to each slice's
+    own product — x (E, M, K) with the E copies one expanded tensor, as
+    ``moe_dense`` builds it, and x (1, E, C, K), as the dispatch does."""
+    from repro_torch.kernels import registry
+
+    w = torch.from_numpy(np.random.default_rng(0).normal(0, 0.05, (5, 1536, 40))
+                         .astype(np.float32))
+    qt = tquant.encode(w, tquant.QScheme.int_symmetric(
+        bits, scaling="channel", rounding="nearest", packed=packed)).to(cuda)
+    kb = registry.get("cuda")
+    flat = torch.randn(4, 1536, device=cuda).to(torch.bfloat16)
+    for x in (flat[None].expand(5, 4, 1536), torch.randn(1, 5, 16, 1536, device=cuda)
+              .to(torch.bfloat16)):
+        before = tqmm.launches
+        got = kb.quant_dense(x, qt)
+        torch.cuda.synchronize()
+        assert tqmm.launches == before + 5
+        xs = x.movedim(-3, 0)
+        for i in range(5):
+            one = tqmm.qmm(xs[i].reshape(-1, 1536), qt.codes[i], qt.scale[i], packed=packed)
+            assert torch.equal(got.movedim(-3, 0)[i].reshape(one.shape), one)
+    assert qt.index(3).codes.data_ptr() == qt.codes[3].data_ptr()
+
+
+@pytest.mark.gpu
+def test_stacked_weights_without_a_kernel_raise_on_the_card(cuda):
+    """Stacked bitplane (ROADMAP A1) and level-table weights, and
+    ``transpose=True`` on a stacked int weight (ROADMAP A6), raise on the
+    card: no silent decode."""
+    from repro_torch.kernels import registry
+
+    w = torch.randn(3, 64, 32) * 0.05
+    x = torch.randn(3, 4, 64, device=cuda)
+    kb = registry.get("cuda")
+    cases = [(tquant.encode(w, tquant.QScheme.bitplane(4)), x, False, "A1"),
+             (tquant.encode(w, tquant.QScheme.levels(5, rounding="nearest"),
+                            levels=torch.tensor([-0.1, -0.05, 0.0, 0.05, 0.1])), x, False, "A6"),
+             (tquant.encode(w, tquant.QScheme.int_symmetric(8, scaling="channel",
+                                                            rounding="nearest")),
+              torch.randn(3, 4, 32, device=cuda), True, "A6")]
+    for qt, xx, transpose, item in cases:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            kb.quant_dense(xx, qt.to(cuda), transpose=transpose)
 
 
 def _check_qmm(cuda, m, k, n, bits, packed, xdtype):
@@ -226,9 +294,10 @@ def test_paged_attn_kernel_matches_plain(cuda, kv_bits, g):
 
 
 # (H, Hkv, D): gemma-2b's MQA, gemma-7b's MHA, granite-3-8b's GQA, the
-# small pools above and qwen2.5-14b's GQA (R = 5 query heads a kv head)
+# small pools above, qwen2.5-14b's GQA (R = 5 query heads a kv head) and
+# granite-moe-3b-a800m's (D 64, R 3)
 ATTN_LAYOUTS = [(8, 1, 256), (16, 16, 256), (32, 8, 128), (4, 1, 16), (4, 2, 16),
-                (40, 8, 128)]
+                (40, 8, 128), (24, 8, 64)]
 
 
 def _attn_lens(page):
@@ -1393,6 +1462,109 @@ def test_dense_family_card_matches_cpu_plain_path(cuda, arch, bits):
         legacy[str(where)] = torch.cat(toks, 1).cpu()
     assert engine[str(cuda)] == engine["cpu"]
     assert torch.equal(legacy[str(cuda)], legacy["cpu"])
+
+
+# a routing difference between the card and the CPU (an expert in one's
+# top k and not the other's) must sit where the CPU's k-th and (k+1)-th
+# router probabilities lie within MOE_ROUTE_TIE of each other: card and
+# CPU sum the router's K in different orders (f32 noise ~1e-7 in a
+# probability), and any wider gap would be a fault
+MOE_ROUTE_TIE = 1e-4
+
+
+@contextlib.contextmanager
+def _routing(log):
+    """Every ``moe._router_probs`` call inside appends (top-k ids,
+    probabilities) to ``log`` on the host."""
+    from repro_torch.models import moe
+
+    orig = moe._router_probs
+
+    def wrapped(p, x, spec):
+        out = orig(p, x, spec)
+        log.append((out[1].cpu(), out[2].float().cpu()))
+        return out
+
+    moe._router_probs = wrapped
+    try:
+        yield log
+    finally:
+        moe._router_probs = orig
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_moe_paths_card_matches_cpu_plain_path(cuda, bits):
+    """The reduced granite-moe-3b-a800m (8 experts, top 4) at f32, weight/KV
+    bits ``bits``, on the card (``qmm`` a slice, ``paged_decode_attn``) and
+    on the CPU's plain path from the same weights, the router's calls
+    captured on both sides: at int bits the paged engine's greedy tokens
+    equal (B10 takes raw KV pages in bf16 only); the legacy loop (2 × 384
+    prompts: the prefill's MoE layers take the dispatch; 8 decode steps,
+    both fed the CPU's greedy tokens) with every routing difference at a
+    near tie (``MOE_ROUTE_TIE``), and on each sequence whose routing never
+    differed the greedy tokens equal where the CPU's top two logits lie
+    more than 2e-3 of the largest apart, and with raw KV rows the logits
+    within 1e-4 of the largest."""
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    plan = PrecisionPlan(model_bits=bits, kv_bits=bits, model_storage="int" if bits else "fake")
+    cfg = configs.get_reduced("granite-moe-3b-a800m", dtype=torch.float32, precision=plan)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    if bits:
+        params = quantize_param_tree(params, bits=bits)
+        engine = {}
+        for where in (cuda, "cpu"):
+            eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                              backend="cuda", device=where)
+            before = (tqmm.launches, tpa.launches)
+            res = eng.run(make_trace(8, cfg.vocab_size, max_new=16, max_prompt=32, seed=0))
+            engine[str(where)] = {r: f.tokens.tolist() for r, f in res.items()}
+            if where != "cpu":
+                assert tqmm.launches > before[0] and tpa.launches > before[1]
+        assert engine[str(cuda)] == engine["cpu"]
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 384)))
+    legacy, routes, fed = {}, {}, None
+    for where in ("cpu", cuda):
+        p = params if where == "cpu" else _to(params, cuda)
+        with _routing([]) as log, registry.using("cuda"):   # CPU: the plain versions
+            logits, state = make_prefill_step(cfg, pad_to=384 + 9)(
+                p, {"tokens": prompt.to(where)})
+            lgs = [logits]
+            for i in range(8):
+                tok = torch.argmax(lgs[-1], -1) if fed is None else fed[i]
+                lg, _, state = make_serve_step(cfg)(p, state,
+                                                    tok.to(where, torch.int32)[:, None])
+                lgs.append(lg[:, 0])
+        legacy[str(where)] = [t.float().cpu()[:, :cfg.vocab_size] for t in lgs]
+        routes[str(where)] = log
+        fed = [torch.argmax(t, -1) for t in legacy["cpu"]]
+    card, cpu = routes[str(cuda)], routes["cpu"]
+    assert len(card) == len(cpu) == 9 * cfg.n_layers
+    routed = torch.zeros(2, dtype=torch.bool)
+    for i, (a, b) in enumerate(zip(legacy[str(cuda)], legacy["cpu"])):
+        for (ia, _), (ib, pb) in zip(card[i * cfg.n_layers:(i + 1) * cfg.n_layers],
+                                     cpu[i * cfg.n_layers:(i + 1) * cfg.n_layers]):
+            bad = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+            if bad.any():
+                top = pb.sort(-1, descending=True).values
+                assert float((top[..., cfg.top_k - 1] - top[..., cfg.top_k])[bad].max()) \
+                    < MOE_ROUTE_TIE
+            routed |= bad.reshape(2, -1).any(-1)
+        keep = ~routed
+        scale = b.abs().max().item()
+        top2 = b.topk(2, -1).values
+        clear = ((top2[:, 0] - top2[:, 1]) > 2e-3 * scale) & keep
+        assert torch.equal(a.argmax(-1)[clear], b.argmax(-1)[clear])
+        if not bits:
+            torch.testing.assert_close(a[keep], b[keep], rtol=0, atol=1e-4 * scale)
 
 
 # ------------------------------------------------ threefry, keyed B1 and B9 --

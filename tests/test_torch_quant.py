@@ -114,16 +114,27 @@ def test_layer_index_is_a_view():
 
 def test_unported_paths_name_the_roadmap():
     """Quantized embedding tables are ported (ROADMAP A5, ``include_embedding``
-    quantizes only ``table`` leaves); stacked expert weights still wait for
-    ROADMAP A6."""
+    quantizes only ``table`` leaves), and so are stacked (S, K, N) expert
+    weights (ROADMAP A6(a)): x (S, M, K) contracts slice by slice, on both
+    backends, as the 2-D product of each slice. A weight with two stack
+    dimensions still raises (stacked bitplane weights on the card raise
+    naming ROADMAP A1: ``test_torch_kernels_gpu.py``)."""
     x = torch.randn(4, 4)
     out = tqat.quantize_param_tree({"w": x}, bits=8, include_embedding=True)
     assert isinstance(out["w"], tquant.QTensor)
     stacked = tquant.encode(torch.randn(2, 4, 4), tquant.QScheme.int_symmetric(
         8, scaling="channel", rounding="nearest"))
+    xs = torch.randn(2, 3, 4)
     for be in ("ref", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            tquant.quant_dense(x, stacked, backend=be)
+        got = tquant.quant_dense(xs, stacked, backend=be)
+        want = torch.stack([tquant.quant_dense(xs[i], stacked.index(i), backend=be)
+                            for i in range(2)])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    twice = tquant.encode(torch.randn(2, 2, 4, 4), tquant.QScheme.int_symmetric(
+        8, scaling="channel", rounding="nearest"))
+    for be in ("ref", "cuda"):
+        with pytest.raises(NotImplementedError, match="stack"):
+            tquant.quant_dense(torch.randn(2, 2, 3, 4), twice, backend=be)
 
 
 def test_levels_grid_encode_matches_reference():
