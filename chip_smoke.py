@@ -209,13 +209,38 @@ NVIDIA card.
    4/4, engine and legacy loop (2 × 384 prompts: the dispatch) on the card
    against the CPU's plain path, the routing captured on both sides (every
    difference at a near tie);
-13. every plane the paths draw on the card takes the threefry kernel: a
+13. slice 11 — ``[kernel] qmm mixtral``: B5 at every (K, N) of
+   mixtral-8x7b — q/o, k/v, the router's N 8 (int8 rows of 8 bytes, packed
+   int4 rows of 4), an expert's gate/up and down — int8 and int4, at decode
+   M 2, the prefill's M 16384 (q, k, v, o, the router) and the dispatch's
+   capacity 5120 (the experts); ``[serve-mixtral]``: full-width
+   mixtral-8x7b (8 experts, top 2, sliding window 4096; 46.6 B parameters,
+   random weights from seed 0, each weight encoded a layer at a time as it
+   is drawn) through the legacy ``serve`` at 8/8 and 4/4 (2 prompts of
+   8192 = 2 W, the length at which the reference's ring holds the window,
+   ROADMAP C24; 32 new tokens): ``qmm`` 32 × (4 + 1 + 3 × 8) = 928 a
+   prefill and a decode step, the prefill's experts at the dispatch's
+   capacity M 5120, peak memory under the card's 80 GB, the codes' bytes,
+   the build's seconds on a line of their own, a profiled prefill (device
+   ms, ``qmm``'s share, each layer's dropped-choice share), the ring (4096
+   rows a layer; the first decode step writes slot 0, position 4096's, and
+   no other) and a profiled decode step (device ms, idle share, wall);
+   ``[check window]``: layers 0 and 31's attention blocks of the int8
+   build at f32 on 8193 random rows — ring prefill of 8192 plus
+   ``attention_decode_step`` at position 8192 within 1e-4 of the windowed
+   block's last row, and at least 100 times that from the unwindowed
+   block's (the window binds); at int8 KV reported; ``[check mixtral]``:
+   the reduced model (window 32) at f32, weight/KV bits 0/0 and 8/8, the
+   legacy loop on prompts of 64 (the ring's identity order) and 40 (C24)
+   on the card against the CPU's plain path (tokens equal but at near
+   ties or after a routing difference; raw-KV logits within 1e-5);
+14. every plane the paths draw on the card takes the threefry kernel: a
    phase fails if ``prng`` made an int64 hash on the card in it (its
    counter, set to 0 just before each phase but the kernels'), and the main
    paths' plane launches are counted by (output, keys, size) for the
    ``kernels`` line; ``quant_adamw`` pass 2 and ``ds_quant`` run their keyed
    entries on the paths (their rand entries 0 launches);
-14. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
+15. prints each phase's wall seconds (``[phase]``), a ``{"kernels": [...]}``
    line and, last, the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises (exit code ≠ 0) and prints no result line; so does a
@@ -469,7 +494,8 @@ DENSE_WIDTH = {"gemma-2b": (18, 2048, 8, 1, 256, 16384, 256000),
                "gemma-7b": (28, 3072, 16, 16, 256, 24576, 256000),
                "granite-3-8b": (40, 4096, 32, 8, 128, 12800, 49155),
                "qwen2.5-14b": (48, 5120, 40, 8, 128, 13824, 152064),
-               "granite-moe-3b-a800m": (32, 1536, 24, 8, 64, 512, 49155)}
+               "granite-moe-3b-a800m": (32, 1536, 24, 8, 64, 512, 49155),
+               "mixtral-8x7b": (32, 4096, 32, 8, 128, 14336, 32000)}
 DENSE_ARCHS = ("gemma-7b", "granite-3-8b", "qwen2.5-14b")
 DENSE_RUNS = (("gemma-7b", 8), ("granite-3-8b", 8), ("qwen2.5-14b", 8), ("qwen2.5-14b", 4))
 LEGACY_DENSE = dict(arch="qwen2.5-14b", weight_bits=8, kv_bits=8, batch=4, prompt_len=32,
@@ -573,6 +599,42 @@ MOE_FORCED_ROUTE_TIE = 2e-3
 MOE_CHECKS = ((0, 0), (8, 8), (4, 4))
 MOE_CHECK_PROMPT = (2, 384)
 MOE_ROUTE_TIE = 1e-4
+# slice 11: full-width mixtral-8x7b (32 layers, d_model 4096, 32 query
+# heads and 8 KV heads of 128, 8 experts of d_ff 14336, top 2, sliding
+# window 4096, vocab 32000: 46.6 B parameters; random weights from seed 0,
+# each weight encoded a layer at a time as it is drawn) through the legacy
+# serve at weight/KV bits 8/8 and 4/4: 2 prompts of 8192 = 2 W (a multiple
+# of the window longer than it: the only prompts on which the reference's
+# ring holds the window, ROADMAP C24) and 32 new tokens. The prefill's
+# 16384 tokens take the dispatch at capacity ⌊16384·2/8·1.25⌋ = 5120
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_BITS = (8, 4)
+MIXTRAL_LEGACY = dict(batch=2, prompt_len=8192, gen=32)
+MIXTRAL_WINDOW = 4096
+MIXTRAL_CAPACITY = int(2 * 8192 * 2 / 8 * 1.25)
+# B5 at each (K, N) of the model at decode M 2, the prefill's M 16384
+# (q, k, v, o and the router: N 8, rows of 8 / 4 bytes) and the
+# dispatch's capacity (the experts)
+MIXTRAL_QMM_KN = {(4096, 4096): ("q, o", 16384), (4096, 1024): ("k, v", 16384),
+                  (4096, 8): ("router", 16384),
+                  (4096, 14336): ("expert gate, up", MIXTRAL_CAPACITY),
+                  (14336, 4096): ("expert down", MIXTRAL_CAPACITY)}
+# a layer's dispatch must keep most choices: with random weights and
+# capacity factor 1.25 the drops are a few percent (granite-moe's ≤ 0.028)
+MIXTRAL_DROP_MAX = 0.25
+# [check window]: layers 0 and 31's attention of the int8 build at f32 on
+# 8193 random rows: the ring prefill of 8192 + one decode step against the
+# windowed block's last row, within WINDOW_CHECK_TOL of its largest |output|
+# (f32 sums of 4096 rows in another order), and the unwindowed block's at
+# least WINDOW_BINDS times that away
+WINDOW_CHECK_LAYERS = (0, 31)
+WINDOW_CHECK_TOL = 1e-4
+WINDOW_BINDS = 100
+# [check mixtral]: the reduced model (window 32) card vs CPU at f32, the
+# legacy loop on 2 prompts of each length + 8 decode steps
+MIXTRAL_CHECKS = ((0, 0), (8, 8))
+MIXTRAL_CHECK_PROMPTS = (64, 40)
+MIXTRAL_CHECK_TOL = 1e-5
 
 
 def _fail(msg: str, code: int):
@@ -1266,22 +1328,27 @@ def check_ds_quant(dev, flush):
 
 def _cuda_launches(fn, calls: int = 5) -> tuple[float, list[str]]:
     """Device events (kernels and memsets alike) per call of ``fn``, over
-    ``calls`` calls under ``torch.profiler``, after a warm-up call. A
-    session that records no device event at all, or a count of events that
-    ``calls`` calls cannot make (CUPTI coming up late drops a session's
-    first events: 4 of 5 calls' launches were seen once), is a failed
-    reading and is taken again, at most twice."""
+    ``calls`` calls under ``torch.profiler``, after a warm-up call. The
+    profiler records a second round of ``calls`` calls after a first it
+    discards: CUPTI coming up late drops the first events of a profile (4
+    of 5 calls' launches were seen, three profiles in a row, on an NVIDIA
+    H100 80GB HBM3). A profile that records no device event at all, or a
+    count of events that ``calls`` calls cannot make, is a failed reading
+    and is taken again, at most twice."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if events and sum(e.count for e in events) % calls == 0:
             break
@@ -2274,11 +2341,15 @@ def _check_served(engine, results, cfg):
 
 
 def _code_bytes(params) -> int:
+    """Bytes of every QTensor's code plane (bitplane words, int8 or packed
+    int4 codes) in a param tree."""
     from repro_torch.quant import QTensor
 
     if isinstance(params, dict):
         return sum(_code_bytes(v) for v in params.values())
-    return 4 * params.codes.numel() if isinstance(params, QTensor) else 0
+    if isinstance(params, QTensor):
+        return params.codes.numel() * params.codes.element_size()
+    return 0
 
 
 def serve_bitplane(dev, checked):
@@ -4610,6 +4681,336 @@ def agree_moe(dev):
     return out
 
 
+def check_qmm_mixtral(dev, flush):
+    """B5 at every (K, N) of mixtral-8x7b (``MIXTRAL_QMM_KN``: the router's
+    N 8 — int8 rows of 8 bytes, packed int4 rows of 4 — among them), int8
+    and int4, at decode M 2 (SIMT) and at the prefill's M (tensor cores):
+    16384 for q, k, v, o and the router, the dispatch's capacity 5120 for
+    the experts."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    decode_m = MIXTRAL_LEGACY["batch"]
+    rows = []
+    for bits in (8, 4):
+        for (k, n), (what, prefill_m) in MIXTRAL_QMM_KN.items():
+            for m, role in ((decode_m, "decode"), (prefill_m, "prefill")):
+                rows.append(_qmm_row(dev, gen, flush, bits, m, k, n,
+                                     f" (mixtral {what}; {role})"))
+    return rows
+
+
+def _matrix_params(cfg) -> int:
+    """Entries of every matmul weight of an moe model: q, k, v, o, the
+    router and each expert's gate, up and down, in every layer."""
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return cfg.n_layers * (2 * d * q + 2 * d * kv + d * cfg.n_experts
+                           + 3 * cfg.n_experts * d * cfg.d_ff)
+
+
+def _clone_tree(tree):
+    """A copy of a (view) param tree: a layer's blocks outlive the stack."""
+    from repro_torch.quant import QTensor
+
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.codes.clone(), tree.scale.clone(), tree.scheme)
+    return tree.clone()
+
+
+def _serve_mixtral_bits(dev, checked, bits: int):
+    """One [serve-mixtral] run at weight/KV bits ``bits`` (see
+    :func:`serve_mixtral`); returns (run, layers 0 and 31's attention
+    blocks at 8 bits, else None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.layers import layer_view
+    from repro_torch.quant import tree_nbytes
+
+    kw = dict(MIXTRAL_LEGACY, weight_bits=bits, kv_bits=bits)
+    bsz, plen, gen = kw["batch"], kw["prompt_len"], kw["gen"]
+    tag = f"[serve-mixtral] {bits}/{bits}"
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_counters()
+    PA.launches = 0
+    t0 = time.perf_counter()
+    tokens, tps = S.serve(MIXTRAL, reduced=False, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"qmm": Q.launches, "paged_decode_attn": PA.launches}
+    cores = _core_gate(tag, Q, checked)
+    shapes = dict(Q.shape_launches)
+    torch.cuda.empty_cache()
+    plan = S._resolve_plan(None, kw["kv_bits"], kw["weight_bits"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cfg, params = S._build(MIXTRAL, reduced=False, plan=plan, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    L, E = cfg.n_layers, cfg.n_experts
+    print(f"{tag} build: {_matrix_params(cfg) / 1e9:.2f} B matmul weights drawn and "
+          f"encoded a layer at a time in {build_s:.1f} s", flush=True)
+    if _width(cfg) != DENSE_WIDTH[MIXTRAL] or (E, cfg.top_k, cfg.window) != \
+            (8, 2, MIXTRAL_WINDOW):
+        raise AssertionError(f"not full-width {MIXTRAL}: {cfg}")
+    if tokens.shape != (bsz, plen + gen) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"{tag} tokens {tokens.shape}, range "
+                             f"{tokens.min()}..{tokens.max()}")
+    per_pass = _qmm_per_layer(cfg) * L
+    want = {"qmm": per_pass * (gen + 1), "paged_decode_attn": 0}
+    if per_pass != 928 or launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    dispatched = sum(c for (packed, m, k, n), c in shapes.items() if m == MIXTRAL_CAPACITY)
+    if dispatched != 3 * E * L:
+        raise AssertionError(f"{tag} {dispatched} qmm launches at the dispatch's capacity "
+                             f"M {MIXTRAL_CAPACITY}, expected {3 * E * L}")
+    code_bytes, weight_bytes = _code_bytes(params), tree_nbytes(params)
+    if code_bytes != _matrix_params(cfg) * bits // 8 or peak >= 80e9:
+        raise AssertionError(f"{tag} code bytes {code_bytes} (expected "
+                             f"{_matrix_params(cfg) * bits // 8}), peak {peak}")
+    prompts = prng.randint(prng.fold_in(prng.PRNGKey(0), 1), (bsz, plen), 0,
+                           cfg.vocab_size, device=dev)
+    if not np.array_equal(prompts.cpu().numpy(), tokens[:, :plen]):
+        raise AssertionError(f"{tag} the rebuilt prompts differ from serve()'s")
+    prefill = make_prefill_step(cfg, pad_to=plen + gen)
+    t1 = time.perf_counter()
+    with _routing([]) as log, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel, n_events = _device_kernels(prof)
+    device_ms = sum(by_kernel.values())
+    qmm_ms = sum(v for k_, v in by_kernel.items() if "qmm" in k_)
+    drops = _drops_by_layer(log, L, MIXTRAL_CAPACITY, cfg.top_k)
+    first = torch.argmax(logits, -1).cpu().numpy()
+    if not np.array_equal(first, tokens[:, plen]):
+        raise AssertionError(f"{tag} rebuilt prefill's tokens {first} vs serve()'s "
+                             f"{tokens[:, plen]}")
+    if not device_ms or not 0 < qmm_ms <= device_ms or max(drops) > MIXTRAL_DROP_MAX:
+        raise AssertionError(f"{tag} prefill device {device_ms} ms, qmm {qmm_ms} ms, "
+                             f"drops {drops}")
+    # the ring: the window's rows a layer, the prompt's last W in order;
+    # the first decode step writes slot 8192 % 4096 = 0 (position 4096)
+    ring = state.layers
+    rows = ring.k.shape[2]
+    if rows != MIXTRAL_WINDOW or ring.length.unique().tolist() != [plen]:
+        raise AssertionError(f"{tag} ring of {rows} rows, lengths "
+                             f"{ring.length.unique().tolist()}")
+    step = make_serve_step(cfg)
+    tok = torch.as_tensor(first, device=dev).to(torch.int32)[:, None]
+    Q.reset_counters()
+    _, _, new = step(params, state, tok)
+    step_qmm = Q.launches
+    changed = (new.layers.k != ring.k).flatten(3).any(-1)          # (L, B, rows)
+    written = [int(i) for i in changed.any(0).any(0).nonzero().flatten()]
+    if written != [plen % rows] or not changed[:, :, plen % rows].all() \
+            or step_qmm != per_pass:
+        raise AssertionError(f"{tag} the first decode step wrote slots {written} "
+                             f"(expected [{plen % rows}]) with {step_qmm} qmm launches")
+    del new, changed
+    prof_dec = profile_steps(step, params, state, tok, MOE_PROFILE_STEPS)
+    if not prof_dec["device_ms_per_step"]:
+        raise AssertionError(f"{tag} the decode profile read no device time")
+    profiles_s = time.perf_counter() - t1
+    _core_gate(f"{tag} checks", Q, checked)
+    blocks = None
+    if bits == 8:
+        blocks = {i: _clone_tree(layer_view(params["layers"], i)["attn"])
+                  for i in WINDOW_CHECK_LAYERS}
+    run = {"arch": MIXTRAL, **kw, "tokens_shape": list(tokens.shape),
+           "decode_ms_per_step": 1e3 * bsz / tps, "decode_tokens_per_s": tps,
+           "prefill_ms": prefill_ms, "prefill_device_ms": device_ms,
+           "prefill_qmm_device_ms": qmm_ms, "prefill_device_events": n_events,
+           "prefill_top_kernels_ms": dict(sorted(by_kernel.items(),
+                                                 key=lambda kv: -kv[1])[:8]),
+           "dropped_choice_share_by_layer": drops, "capacity": MIXTRAL_CAPACITY,
+           "peak_bytes": peak, "wall_s": wall, "build_s": build_s, "launches": launches,
+           "qmm_launches_per_decode_step": step_qmm, "qmm_launches_by_core": cores,
+           "qmm_shape_launches": [[*k_, v] for k_, v in shapes.items()],
+           "ring_rows": rows, "first_step_slots": written,
+           "cache_bytes_per_sequence": tree_nbytes(ring._asdict()) // bsz,
+           "code_bytes": code_bytes, "weight_bytes": weight_bytes,
+           "decode_profile": prof_dec}
+    print(f"{tag}: {MIXTRAL} full width, tokens {tuple(tokens.shape)} in vocab; peak "
+          f"{peak / 2**30:.2f} GiB over the serve() call; weights {weight_bytes / 1e9:.3f} GB "
+          f"(codes {code_bytes / 1e9:.3f}); prefill {prefill_ms:.1f} ms, device "
+          f"{device_ms:.2f} ms, qmm {qmm_ms:.2f} ms (share {qmm_ms / device_ms:.3f}); "
+          f"capacity {MIXTRAL_CAPACITY}, {dispatched} launches there; dropped-choice share "
+          f"by layer " + ", ".join(f"{d:.4f}" for d in drops) + f"; ring {rows} rows a "
+          f"layer, first step wrote slot {written}; qmm {step_qmm} a decode step; decode "
+          f"{run['decode_ms_per_step']:.2f} ms/step ({tps:.2f} tok/s), device "
+          f"{prof_dec['device_ms_per_step']:.2f} ms, idle share "
+          f"{prof_dec['device_idle_share']:.3f}, profiled wall "
+          f"{prof_dec['wall_ms_per_step']:.1f} ms; launches {launches} {cores}; serve() "
+          f"{wall:.1f} s, profiles {profiles_s:.1f} s", flush=True)
+    del params, state, ring
+    torch.cuda.empty_cache()
+    return run, blocks
+
+
+def serve_mixtral(dev, checked):
+    """Slice 11's main path: ``launch.serve.serve`` (the legacy loop) on
+    full-width mixtral-8x7b at ``MIXTRAL_LEGACY``, weight/KV bits 8/8 and
+    4/4, the ``qmm`` and ``paged_decode_attn`` counters set to 0 just before
+    and read just after each call: ``qmm`` 928 a prefill and a decode step
+    (the warm-up step included) at checked shapes, the prefill's experts
+    at the dispatch's capacity M 5120, ``paged_decode_attn`` 0 (the legacy
+    loop attends in plain PyTorch, as the reference); in-vocab tokens; peak
+    memory under 80 GB; the codes' bytes those of every matrix at the
+    bits. Then, on the same weights rebuilt from the seed (timed: the
+    build), a profiled prefill (device ms, ``qmm``'s share, each layer's
+    dropped-choice share at capacity), the ring (W rows a layer; the first
+    step writes slot 0 alone, with 928 ``qmm`` launches) and a profiled
+    decode step. Returns ({bits: run}, layers 0 and 31's attention blocks
+    of the int8 build for [check window])."""
+    import torch
+
+    out, blocks = {}, None
+    for bits in MIXTRAL_BITS:
+        out[f"{bits}/{bits}"], got = _serve_mixtral_bits(dev, checked, bits)
+        blocks = blocks or got
+        torch.cuda.empty_cache()
+    return out, blocks
+
+
+def check_window(dev, blocks):
+    """The ring decode against the windowed prefill at full width: for
+    layers 0 and 31's attention blocks of the int8 build, on 8193 random
+    f32 rows, ring prefill of the first 8192 (``prefill_cache_from_kv``
+    keeps the last W) plus ``attention_decode_step`` of row 8192 against
+    the windowed ``attention_block``'s last row of all 8193 — within
+    ``WINDOW_CHECK_TOL`` of its largest |output| at raw KV — and against the
+    unwindowed block's (window 0), which must lie ``WINDOW_BINDS`` times
+    that away. At int8 KV the gap is reported."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import attention as A
+
+    spec = configs.get_config(MIXTRAL).attn_spec
+    full_spec = dataclasses.replace(spec, window=0)
+    s = MIXTRAL_LEGACY["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(1, s + 1, spec.n_heads * spec.head_dim, generator=gen, device=dev)
+    out = {}
+    with torch.no_grad():
+        for layer, p in blocks.items():
+            want = A.attention_block(p, x, spec)[:, -1:]
+            unwindowed = A.attention_block(p, x, full_spec)[:, -1:]
+            _, (k, v) = A.attention_block(p, x[:, :s], spec, return_kv=True)
+            row = {}
+            for kv_bits in (0, 8):
+                cache = A.prefill_cache_from_kv(k, v, window=spec.window, kv_bits=kv_bits)
+                got, new = A.attention_decode_step(p, x[:, s:], cache, spec)
+                scale = float(want.abs().max())
+                row[kv_bits] = {
+                    "gap": float((got - want).abs().max()) / scale,
+                    "gap_unwindowed": float((got - unwindowed).abs().max())
+                    / float(unwindowed.abs().max()),
+                    "ring_rows": cache.k.shape[1], "length": int(new.length[0])}
+            out[layer] = row
+            raw, q8 = row[0], row[8]
+            print(f"[check window] {MIXTRAL} layer {layer}, f32, W {spec.window}: ring "
+                  f"prefill of {s} + decode at position {s} against the windowed block's "
+                  f"last row: gap {raw['gap']:.3e} of the largest (tol "
+                  f"{WINDOW_CHECK_TOL:g}); against the unwindowed block's "
+                  f"{raw['gap_unwindowed']:.3e} (at least {WINDOW_BINDS} x tol); int8 KV: "
+                  f"{q8['gap']:.3e} (reported), unwindowed {q8['gap_unwindowed']:.3e}",
+                  flush=True)
+            if raw["ring_rows"] != spec.window or raw["length"] != s + 1 \
+                    or not raw["gap"] <= WINDOW_CHECK_TOL \
+                    or not raw["gap_unwindowed"] >= WINDOW_BINDS * WINDOW_CHECK_TOL:
+                raise AssertionError(f"[check window] layer {layer}: {row}")
+    return out
+
+
+def agree_mixtral(dev):
+    """The reduced mixtral-8x7b (4 experts, top 2, window 32) at weight/KV
+    bits ``MIXTRAL_CHECKS``, f32, through the legacy loop on 2 prompts of
+    each of ``MIXTRAL_CHECK_PROMPTS`` (64: the ring in its identity order;
+    40: C24's, whose ring is out of order) + 8 decode steps, on the card
+    (kernels) against the CPU's plain path from the same weights, both the
+    ``cuda`` backend, each fed the CPU's greedy tokens, the routing
+    captured on both sides: greedy tokens equal wherever the CPU's top two
+    logits lie more than ``HYBRID_TIE`` of the largest apart and no routing
+    choice of the sequence differed so far; every routing difference where
+    the CPU's k-th and (k+1)-th probabilities lie within ``MOE_ROUTE_TIE``;
+    raw-KV logits within ``MIXTRAL_CHECK_TOL`` of the largest on every
+    sequence whose routing never differed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+
+    out = {}
+    for bits, kv_bits in MIXTRAL_CHECKS:
+        plan = PrecisionPlan(model_bits=bits, kv_bits=kv_bits,
+                             model_storage="int" if bits else "fake")
+        cfg = configs.get_reduced(MIXTRAL, dtype=torch.float32, precision=plan)
+        tree = T.init_params(cfg, seed=0, device="cpu")
+        tree = quantize_param_tree(tree, bits=bits) if bits else tree
+        for plen in MIXTRAL_CHECK_PROMPTS:
+            prompt = torch.from_numpy(np.random.default_rng(plen).integers(
+                0, cfg.vocab_size, (2, plen)))
+            lgs, logs, fed = {}, {}, None
+            for label, where in (("cpu", "cpu"), ("card", dev)):
+                p = _tree_to(tree, where)
+                step = make_serve_step(cfg)
+                with _routing([]) as log, registry.using("cuda"):   # CPU: the plain versions
+                    logits, state = make_prefill_step(cfg, pad_to=plen + 9)(
+                        p, {"tokens": prompt.to(where)})
+                    got = [logits]
+                    for i in range(8):
+                        tok = torch.argmax(got[-1], -1) if fed is None else fed[i]
+                        lg, _, state = step(p, state, tok.to(where, torch.int32)[:, None])
+                        got.append(lg[:, 0])
+                lgs[label] = [t.float().cpu()[:, :cfg.vocab_size] for t in got]
+                logs[label] = log
+                fed = [t.argmax(-1) for t in lgs["cpu"]]
+                if where != "cpu" and state.layers.k.shape[2] != cfg.window:
+                    raise AssertionError(f"[check mixtral] ring of {state.layers.k.shape[2]}")
+            n_route, gap = _routing_diffs(logs["card"], logs["cpu"], cfg.top_k)
+            res = _forced_tokens(lgs["card"], lgs["cpu"],
+                                 _routed(logs["card"], logs["cpu"], 2, cfg.n_layers, 8, False),
+                                 HYBRID_TIE["float32"])
+            res.update(routing_choices_apart=n_route, routing_largest_gap=gap)
+            gated = not kv_bits
+            print(f"[check] reduced {MIXTRAL} f32 weight/KV bits {bits or 'raw'}/"
+                  f"{kv_bits or 'raw'} legacy, prompts of {plen} (window {cfg.window}): card "
+                  f"vs CPU plain path, fed the CPU's tokens — greedy tokens equal "
+                  f"{res['tokens_equal']}/{res['of']} ({res['near_ties']} within "
+                  f"{HYBRID_TIE['float32']:g} of a tie, {res['excused_by_routing']} after a "
+                  f"routing difference); routing choices apart {n_route} (largest CPU gap "
+                  f"there {gap:.3e}, bound {MOE_ROUTE_TIE:g}); logits max rel diff "
+                  f"{res['logits_max_rel_diff']:.2e}, "
+                  f"{_fmt(res['logits_max_rel_diff_same_routing'])} where the routing never "
+                  f"differed ({'tol %g' % MIXTRAL_CHECK_TOL if gated else 'reported'})",
+                  flush=True)
+            if res["tokens_equal"] != res["of"] or gap >= MOE_ROUTE_TIE or \
+                    (gated and (res["logits_max_rel_diff_same_routing"] or 0.0)
+                     > MIXTRAL_CHECK_TOL):
+                raise AssertionError(f"[check mixtral] bits {bits}/{kv_bits} prompt {plen}: "
+                                     f"{res}")
+            out[f"{bits}_{kv_bits}_{plen}"] = res
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -4704,6 +5105,7 @@ def main():
     hybrid_qmm_rows = phase("kernel qmm zamba2", check_qmm_ssm, dev, flush, "zamba2-2.7b")
     moe_qmm_rows = phase("kernel qmm moe", check_qmm_moe, dev, flush)
     moe_attn_rows = phase("kernel paged_decode_attn moe", check_paged_attn_moe, dev, flush)
+    mixtral_qmm_rows = phase("kernel qmm mixtral", check_qmm_mixtral, dev, flush)
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -4753,6 +5155,14 @@ def main():
     moe = phase("serve-moe", serve_moe, dev, moe_checked)
     legacy_moe = phase("serve-legacy-moe", serve_legacy_moe, dev, moe_checked)
     moe_small = phase("check moe", agree_moe, dev)
+    # slice 11: every qmm launch of [serve-mixtral] must be at a shape
+    # checked for it; [check window] takes the int8 build's attention blocks
+    mixtral, window_blocks = phase("serve-mixtral", serve_mixtral, dev,
+                                   {r["key"] for r in mixtral_qmm_rows})
+    window = phase("check window", check_window, dev, window_blocks)
+    del window_blocks
+    torch.cuda.empty_cache()
+    mixtral_small = phase("check mixtral", agree_mixtral, dev)
 
     # threefry launches on the main paths: the phases' reads (tf_path), and
     # the runs whose counters are reset again before a later run of the
@@ -4935,6 +5345,16 @@ def main():
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
+    # qmm at slice 11's shapes: [serve-mixtral]'s serve() calls at 8/8 and
+    # 4/4, by (packed, M, K, N)
+    mixtral_path = collections.Counter()
+    for run in mixtral.values():
+        mixtral_path.update({tuple(k[:-1]): k[-1] for k in run["qmm_shape_launches"]})
+    for r in mixtral_qmm_rows:
+        r["launches"] = mixtral_path.get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm.cu",
+                        "replaces": "src/repro/kernels/qmm.py:158", **r})
     for r in moe_attn_rows:
         bits = r.pop("kv_bits")
         r.pop("path"), r.pop("layout")
@@ -4969,6 +5389,8 @@ def main():
               "serve_hybrid": hybrid, "hybrid_agreement": hybrid_small,
               "serve_moe": {k: v[2] for k, v in moe.items()},
               "serve_legacy_moe": legacy_moe, "moe_agreement": moe_small,
+              "serve_mixtral": mixtral, "window_check": window,
+              "mixtral_agreement": mixtral_small,
               "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],
               "int32_ops_per_s": INT32_OPS, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

@@ -1,8 +1,9 @@
 """Architecture registry of the port. Slice 1 ports gemma-2b, slice 7
 mamba2-780m, slice 8 the rest of the dense family (gemma-7b, granite-3-8b,
 qwen2.5-14b), slice 9 the hybrid zamba2-2.7b, slice 10 the moe
-granite-moe-3b-a800m; the other three architectures of ``repro.configs``
-(mixtral-8x7b's window, VLM, audio) wait for ROADMAP A6."""
+granite-moe-3b-a800m, slice 11 mixtral-8x7b (moe with a sliding window);
+the other two architectures of ``repro.configs`` (VLM, audio) wait for
+ROADMAP A6."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +12,7 @@ import importlib
 from repro_torch.models.transformer import ModelConfig
 
 ARCH_IDS = ("gemma-2b", "gemma-7b", "granite-3-8b", "qwen2.5-14b", "mamba2-780m",
-            "zamba2-2.7b", "granite-moe-3b-a800m")
+            "zamba2-2.7b", "granite-moe-3b-a800m", "mixtral-8x7b")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCH_IDS}
 

@@ -65,6 +65,21 @@ launch per expert slice on the card:
       --no-reduced --weight-bits 8 --kv-bits 8 --page-size 16 \
       --max-prompt 128 --max-new 32 --requests 8
 
+mixtral-8x7b (8 experts, top 2, sliding window 4096) serves through the
+legacy loop alone — the paged engine rejects windows, as the reference's
+does: each layer's ring cache keeps the prompt's last ``window`` rows and
+decode writes at ``length % window``, which holds the window only where
+the prompt is longer than the window and a multiple of it (ROADMAP C24).
+Its 46.6 B parameters fit the card only as int codes; every weight is
+encoded a layer at a time as it is drawn:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --device cpu --legacy --weight-bits 8 --kv-bits 8 --batch 2 \
+      --prompt-len 64 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --legacy --no-reduced --weight-bits 8 --kv-bits 8 --batch 2 \
+      --prompt-len 8192 --gen 32
+
 Multi-replica serving, prefix caching, chunked prefill and sampling wait
 for ROADMAP A3.
 """
@@ -80,7 +95,7 @@ import torch
 from repro_torch import configs, prng, resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as T
-from repro_torch.precision.qat import quantize_param_tree
+from repro_torch.precision.qat import quantize_param_tree, quantizing_store
 from repro_torch.quant import PrecisionPlan
 
 
@@ -96,14 +111,20 @@ def _resolve_plan(plan, kv_bits, weight_bits, optimal_levels=False) -> Precision
 
 def _build(arch: str, *, reduced: bool, plan: PrecisionPlan, seed: int, device,
            weight_layout: str = "dense"):
+    """The config and random weights from ``seed``. Int and bitplane
+    weights are encoded a layer at a time as they are drawn
+    (``quantizing_store``), so the compute-dtype tree never exists whole;
+    variance-optimal level tables fit each whole leaf, so that build draws
+    the tree first."""
     get = configs.get_reduced if reduced else configs.get_config
     cfg = get(arch, precision=plan)
+    optimal = plan.optimal_levels and weight_layout == "dense"
+    if plan.model_bits and not optimal:
+        store = quantizing_store(plan.model_bits, layout=weight_layout)
+        return cfg, T.init_params(cfg, seed=seed, device=device, weight=store)
     params = T.init_params(cfg, seed=seed, device=device)
     if plan.model_bits:
-        params = quantize_param_tree(
-            params, bits=plan.model_bits,
-            optimal=plan.optimal_levels and weight_layout == "dense",
-            layout=weight_layout)
+        params = quantize_param_tree(params, bits=plan.model_bits, optimal=True)
     return cfg, params
 
 
@@ -124,8 +145,10 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     Returns (tokens (B, prompt+gen) numpy int32, steady-state tokens/s over
     the ``gen − 1`` timed steps; NaN when ``gen`` is 1).
 
-    A dense model's ring cache, and each of a hybrid model's shared
-    caches, holds ``prompt_len + gen`` rows, as the reference's."""
+    A dense or moe model's ring cache, and each of a hybrid model's
+    shared caches, holds ``prompt_len + gen`` rows, as the reference's; a
+    sliding-window model's the last ``window`` prompt rows where the
+    prompt is longer than the window."""
     dev = resolve_device(device)
     plan = _resolve_plan(plan, kv_bits, weight_bits, optimal_levels)
     cfg, params = _build(arch, reduced=reduced, plan=plan, seed=seed, device=dev)

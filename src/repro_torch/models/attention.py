@@ -1,12 +1,16 @@
 """Attention (port of ``repro.models.attention``): GQA/MQA causal prefill
-attention over query blocks (q, k and v may carry a bias), the
-single-token decode projections, the masked one-shot decode softmax of the
-``ref`` backend, and the ring-buffer KV cache of the legacy serve loop
-(``KVCache``, :func:`init_kv_cache`, :func:`update_kv_cache`,
-:func:`prefill_cache_from_kv`, :func:`attention_decode_step`), whose rows
-are quantized as the paged pool's (``serve.pages.quant_rows``).
+attention over query blocks, optionally within a sliding window (q, k and
+v may carry a bias), the single-token decode projections, the masked
+one-shot decode softmax of the ``ref`` backend, and the ring-buffer KV
+cache of the legacy serve loop (``KVCache``, :func:`init_kv_cache`,
+:func:`update_kv_cache`, :func:`prefill_cache_from_kv`,
+:func:`attention_decode_step`), whose rows are quantized as the paged
+pool's (``serve.pages.quant_rows``). With a window W the cache keeps the
+prompt's last W rows and decode writes at ``length % rows``, as the
+reference's; that ring holds the window only for a prompt longer than W
+and a multiple of it (ROADMAP C24).
 
-Sliding windows and cross-attention wait for ROADMAP A6.
+Cross-attention waits for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -15,15 +19,15 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import Params, apply_rope, dense, init_dense
+from .layers import Params, apply_rope, dense, init_dense, stack_layers
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
 
 
 def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
                    head_dim: int, *, qkv_bias: bool = False, lead=(),
-                   dtype=torch.bfloat16, device="cpu") -> Params:
-    kw = dict(lead=lead, dtype=dtype, device=device)
+                   dtype=torch.bfloat16, device="cpu", weight=stack_layers) -> Params:
+    kw = dict(lead=lead, dtype=dtype, device=device, weight=weight)
     return {
         "q": init_dense(gen, d_model, n_heads * head_dim, bias=qkv_bias, **kw),
         "k": init_dense(gen, d_model, n_kv_heads * head_dim, bias=qkv_bias, **kw),
@@ -67,17 +71,26 @@ def _attend_block(q, k, v, scale, mask):
 
 def chunked_attention(q, k, v, spec: AttnSpec) -> torch.Tensor:
     """Causal attention over query blocks of ``spec.q_chunk`` rows.
-    q: (B, S, H, D); k/v: (B, S, Hkv, D), post-RoPE. Returns (B, S, H, D)."""
-    if spec.window:
-        raise NotImplementedError("sliding-window attention (ROADMAP A6)")
+    q: (B, S, H, D); k/v: (B, S, Hkv, D), post-RoPE. Returns (B, S, H, D).
+
+    With a window W < S each block attends over the reference's span of
+    ``min(W + q_chunk, S)`` keys, starting at ``clip(start + q_chunk −
+    span, 0, S − span)``, masked to ``q − k < W``: O(S·W) compute and
+    memory, never S × S scores."""
     s = q.shape[1]
     cq = min(spec.q_chunk, s)
-    k_pos = torch.arange(k.shape[1], device=q.device)
+    w = spec.window
+    span = min(w + cq, s) if 0 < w < s else s
     outs = []
     for start in range(0, s, cq):
+        k0 = min(max(start + cq - span, 0), s - span)
         q_pos = torch.arange(start, min(start + cq, s), device=q.device)
+        k_pos = torch.arange(k0, k0 + span, device=q.device)
         mask = q_pos[:, None] >= k_pos[None, :]
-        outs.append(_attend_block(q[:, start:start + cq], k, v, spec.scale, mask))
+        if w:
+            mask &= q_pos[:, None] - k_pos[None, :] < w
+        outs.append(_attend_block(q[:, start:start + cq], k[:, k0:k0 + span],
+                                  v[:, k0:k0 + span], spec.scale, mask))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
@@ -193,13 +206,16 @@ def _quant_rows(x: torch.Tensor, like: torch.Tensor):
     return quant_rows(x, kv_bits_of(like), like.dtype)
 
 
-def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
-    """Append one token's K/V (B, 1, Hkv, D) at each sequence's cursor
-    ``min(length, Smax − 1)``. The cache is only read: the new cache's
-    planes are copies, so a discarded step leaves the old one as it was."""
+def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, *,
+                    window: int = 0) -> KVCache:
+    """Append one token's K/V (B, 1, Hkv, D) at each sequence's cursor:
+    ``length % Smax`` with a sliding ``window`` (a ring), else ``min(length,
+    Smax − 1)``. The cache is only read: the new cache's planes are copies,
+    so a discarded step leaves the old one as it was."""
     b, smax = cache.k.shape[:2]
     rows = torch.arange(b, device=cache.k.device)
-    cursor = torch.clamp(cache.length.to(torch.int64), max=smax - 1)
+    length = cache.length.to(torch.int64)
+    cursor = length % smax if window else torch.clamp(length, max=smax - 1)
 
     def write(buf, new):
         out = buf.clone()
@@ -214,17 +230,21 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) ->
     return KVCache(write(cache.k, kc), write(cache.v, vc), cache.length + 1)
 
 
-def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, *, kv_bits: int = 0,
-                          pad_to: int = 0) -> KVCache:
-    """A prompt's post-RoPE K/V (B, S, Hkv, D) as a decode cache: ``pad_to``
-    reserves rows past the prompt for decode to append to (zero rows, which
-    quantize to zero codes and unit scales), and ``kv_bits`` quantizes
-    every row as :func:`update_kv_cache` does."""
+def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
+                          kv_bits: int = 0, pad_to: int = 0) -> KVCache:
+    """A prompt's post-RoPE K/V (B, S, Hkv, D) as a decode cache, every row
+    quantized at ``kv_bits`` as :func:`update_kv_cache` does. With a
+    sliding ``window`` W < S the cache is the last W rows (no padding: the
+    ring's order is the identity only where W divides S, ROADMAP C24);
+    otherwise ``pad_to`` reserves rows past the prompt for decode to append
+    to (zero rows, which quantize to zero codes and unit scales)."""
     from repro_torch.serve.pages import quant_rows
 
     b, s = k.shape[:2]
     length = torch.full((b,), s, dtype=torch.int32, device=k.device)
-    if pad_to > s:
+    if window and window < s:
+        k, v = k[:, -window:], v[:, -window:]
+    elif pad_to > s:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_to - s))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_to - s))
     kc, ks = quant_rows(k, kv_bits, k.dtype)
@@ -234,13 +254,13 @@ def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor, *, kv_bits: int = 0,
 
 def attention_decode_step(p: Params, x: torch.Tensor, cache: KVCache,
                           spec: AttnSpec) -> tuple[torch.Tensor, KVCache]:
-    """x (B, 1, d): project at position ``length``, append to the cache,
-    attend over its filled rows. Returns (out (B, 1, d), new cache)."""
-    if spec.window:
-        raise NotImplementedError("sliding-window ring caches (ROADMAP A6)")
+    """x (B, 1, d): project at position ``length``, append to the cache
+    (a ring with ``spec.window``), attend over its first ``min(length,
+    rows)`` rows, with no position mask, as the reference. Returns (out
+    (B, 1, d), new cache)."""
     b = x.shape[0]
     q, k, v = decode_qkv(p, x, spec, cache.length[:, None])
-    cache = update_kv_cache(cache, k, v)
+    cache = update_kv_cache(cache, k, v, window=spec.window)
     kc, vc = cache.materialize()
     kv_len = torch.clamp(cache.length, max=kc.shape[1])
     out = decode_attention(q, kc, vc, spec, kv_len=kv_len)

@@ -47,13 +47,40 @@ def _normal(gen, shape, device):
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
 
+def draw_layers(gen, shape, scale: float, *, lead=(), dtype=torch.bfloat16, device="cpu"):
+    """A weight's N(0, 1)·scale draws, each in f32 and then cast to
+    ``dtype``: one a layer (index of the first ``lead`` axis, shape
+    ``(*lead[1:], *shape)``) of a stacked weight, the whole ``shape`` of an
+    unstacked one. Every stacked weight of ``init_params`` is drawn in this
+    order, whether it is kept or encoded as it comes."""
+    n = lead[0] if lead else 1
+    for _ in range(n):
+        yield (_normal(gen, (*lead[1:], *shape), device) * scale).to(dtype)
+
+
+def stack_layers(layers, lead) -> torch.Tensor:
+    """The default weight store of the inits: the drawn layers written one
+    at a time into one ``(*lead, …)`` tensor (an unstacked weight is its
+    one draw)."""
+    first = next(layers)
+    if not lead:
+        return first
+    out = first.new_empty((lead[0], *first.shape))
+    out[0] = first
+    for i, w in enumerate(layers, 1):
+        out[i] = w
+    return out
+
+
 def init_dense(gen, d_in: int, d_out: int, *, lead=(), dtype=torch.bfloat16,
-               device="cpu", scale: float | None = None, bias: bool = False) -> Params:
-    """w ~ N(0, 1)·scale (default d_in^-0.5), drawn in f32 then cast;
+               device="cpu", scale: float | None = None, bias: bool = False,
+               weight=stack_layers) -> Params:
+    """w ~ N(0, 1)·scale (default d_in^-0.5), drawn in f32 a layer at a time
+    (:func:`draw_layers`) and stored by ``weight(layers, lead)``;
     ``bias`` adds ``b``, zeros of shape (*lead, d_out) in ``dtype``."""
     scale = scale if scale is not None else d_in ** -0.5
-    w = _normal(gen, (*lead, d_in, d_out), device) * scale
-    p = {"w": w.to(dtype)}
+    p = {"w": weight(draw_layers(gen, (d_in, d_out), scale, lead=lead, dtype=dtype,
+                                 device=device), lead)}
     if bias:
         p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
     return p
@@ -157,8 +184,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_mlp(gen, d_model: int, d_ff: int, *, lead=(), dtype=torch.bfloat16,
-             device="cpu") -> Params:
-    kw = dict(lead=lead, dtype=dtype, device=device)
+             device="cpu", weight=stack_layers) -> Params:
+    kw = dict(lead=lead, dtype=dtype, device=device, weight=weight)
     return {"up": init_dense(gen, d_model, d_ff, **kw),
             "gate": init_dense(gen, d_model, d_ff, **kw),
             "down": init_dense(gen, d_ff, d_model, scale=d_ff ** -0.5, **kw)}

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.quant import QTensor, ShipWeight, bmm_f32, mm_f32, quant_dense
 
-from .layers import Params, gelu_tanh, init_dense
+from .layers import Params, draw_layers, gelu_tanh, init_dense, stack_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,20 +49,21 @@ class MoESpec:
     dense_path_max_tokens: int = 512   # ≤ this many tokens per step → dense path
 
 
-def init_moe(gen, spec: MoESpec, *, lead=(), dtype=torch.bfloat16, device="cpu") -> Params:
+def init_moe(gen, spec: MoESpec, *, lead=(), dtype=torch.bfloat16, device="cpu",
+             weight=stack_layers) -> Params:
     """The router (``d_model`` × E, f32 whatever ``dtype``, N(0, 1/d)) and
     the stacked (*lead, E, K, N) gate, up and down expert matrices in
-    ``dtype``, with the reference's distributions."""
+    ``dtype``, with the reference's distributions, each drawn a layer at a
+    time and stored by ``weight`` (``layers.init_dense``)."""
     e, d, f = spec.n_experts, spec.d_model, spec.d_ff
 
     def expert_mat(din, dout, scale):
-        w = torch.randn((*lead, e, din, dout), generator=gen, device=device,
-                        dtype=torch.float32)
-        return {"w": (w * scale).to(dtype)}
+        return {"w": weight(draw_layers(gen, (e, din, dout), scale, lead=lead, dtype=dtype,
+                                        device=device), lead)}
 
     return {
         "router": init_dense(gen, d, e, lead=lead, dtype=torch.float32, device=device,
-                             scale=d ** -0.5),
+                             scale=d ** -0.5, weight=weight),
         "gate": expert_mat(d, f, d ** -0.5),
         "up": expert_mat(d, f, d ** -0.5),
         "down": expert_mat(f, d, f ** -0.5),

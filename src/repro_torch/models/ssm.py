@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import Params, dense, init_dense, init_rmsnorm, rmsnorm
+from .layers import Params, dense, init_dense, init_rmsnorm, rmsnorm, stack_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +48,7 @@ class SSMSpec:
 
 
 def init_mamba2(gen, spec: SSMSpec, *, lead=(), dtype=torch.bfloat16,
-                device="cpu") -> Params:
+                device="cpu", weight=stack_layers) -> Params:
     """The reference's distributions, drawn from ``gen``: dense projections
     N(0, 1)·d_in^-½ (out_proj d_inner^-½), conv taps N(0, 1)·K^-½, a_log =
     log(1..H), D = 1, and dt_bias the inverse softplus of dt log-uniform in
@@ -61,7 +61,7 @@ def init_mamba2(gen, spec: SSMSpec, *, lead=(), dtype=torch.bfloat16,
                    + math.log(spec.dt_min))
     conv_w = torch.randn((*lead, spec.conv_kernel, spec.conv_dim), generator=gen, **f32)
     return {
-        "in_proj": init_dense(gen, spec.d_model, d_in_proj, **kw),
+        "in_proj": init_dense(gen, spec.d_model, d_in_proj, weight=weight, **kw),
         "conv_w": (conv_w * spec.conv_kernel ** -0.5).to(dtype),
         "conv_b": torch.zeros((*lead, spec.conv_dim), dtype=dtype, device=device),
         "a_log": torch.log(torch.arange(1, spec.n_heads + 1, **f32)).expand(
@@ -70,7 +70,7 @@ def init_mamba2(gen, spec: SSMSpec, *, lead=(), dtype=torch.bfloat16,
         "dt_bias": dt + torch.log(-torch.expm1(-dt)),   # inverse softplus
         "norm": init_rmsnorm(spec.d_inner, **kw),
         "out_proj": init_dense(gen, spec.d_inner, spec.d_model,
-                               scale=spec.d_inner ** -0.5, **kw),
+                               scale=spec.d_inner ** -0.5, weight=weight, **kw),
     }
 
 

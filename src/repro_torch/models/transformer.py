@@ -13,8 +13,8 @@ replaced by the MoE block (``models/moe``).
 ``lax.scan`` over stacked layers becomes a Python loop over per-layer views
 of the same stacked tensors; the training forward rematerializes each layer
 in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
-reference's ``jax.checkpoint`` does. VLM and audio families, and sliding
-windows, wait for ROADMAP A6.
+reference's ``jax.checkpoint`` does. VLM and audio families, and a window
+on the hybrid, wait for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
-                     layer_view, mlp, rmsnorm, unembed, unstack_layers)
+                     layer_view, mlp, rmsnorm, stack_layers, unembed, unstack_layers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,11 +88,11 @@ class ModelConfig:
 
 
 def _check_family(cfg: ModelConfig):
-    """The ported families: dense (tied embeddings, no window; q, k and v
-    may carry a bias), moe (tied embeddings, no window), ssm (tied
-    embeddings) and hybrid (tied embeddings, no window). An ssm config with
-    ``kv_bits`` raises: it has no KV cache to quantize (the reference
-    ignores the request; ROADMAP C18). A hybrid config whose
+    """The ported families: dense and moe (tied embeddings; a sliding
+    ``window`` or none; a dense model's q, k and v may carry a bias), ssm
+    (tied embeddings) and hybrid (tied embeddings, no window). An ssm
+    config with ``kv_bits`` raises: it has no KV cache to quantize (the
+    reference ignores the request; ROADMAP C18). A hybrid config whose
     ``shared_attn_every`` is not a positive divisor of ``n_layers`` raises
     (the reference dies in a reshape or a division by zero), and so does an
     moe config that routes to fewer than one expert or to more experts
@@ -112,17 +112,17 @@ def _check_family(cfg: ModelConfig):
                 f"after every shared_attn_every layers, which must divide "
                 f"n_layers={cfg.n_layers}; got shared_attn_every={k}")
         return
-    if cfg.family == "moe" and cfg.tie_embeddings and not cfg.window:
+    if cfg.family == "moe" and cfg.tie_embeddings:
         if cfg.top_k < 1 or cfg.n_experts < cfg.top_k:
             raise ValueError(
                 f"{cfg.name}: an moe model routes each token to top_k >= 1 of its "
                 f"n_experts experts; got n_experts={cfg.n_experts}, top_k={cfg.top_k}")
         return
-    if cfg.family != "dense" or cfg.window or not cfg.tie_embeddings:
+    if cfg.family != "dense" or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and moe families with tied embeddings and "
-            "no window, the ssm family and the hybrid family without a window "
-            "are ported (ROADMAP A6)")
+            f"{cfg.name}: only the dense and moe families with tied embeddings, "
+            "the ssm family and the hybrid family without a window are ported "
+            "(ROADMAP A6)")
 
 
 def _shared_after(cfg: ModelConfig, i: int) -> bool:
@@ -130,7 +130,7 @@ def _shared_after(cfg: ModelConfig, i: int) -> bool:
     return cfg.family == "hybrid" and (i + 1) % cfg.shared_attn_every == 0
 
 
-def _init_attn_block(gen, cfg: ModelConfig, **kw) -> Params:
+def _init_attn_block(gen, cfg: ModelConfig, weight=stack_layers, **kw) -> Params:
     """A pre-norm attention + MLP block (``ln1``, ``attn``, ``ln2``,
     ``mlp``): a dense layer, stacked with ``lead=(L,)``, or the hybrid's
     shared block; an moe layer has the MoE block ``moe`` in place of
@@ -138,22 +138,28 @@ def _init_attn_block(gen, cfg: ModelConfig, **kw) -> Params:
     blk = {
         "ln1": init_rmsnorm(cfg.d_model, **kw),
         "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                    cfg.head_dim, qkv_bias=cfg.qkv_bias, **kw),
+                                    cfg.head_dim, qkv_bias=cfg.qkv_bias, weight=weight,
+                                    **kw),
         "ln2": init_rmsnorm(cfg.d_model, **kw),
     }
     if cfg.family == "moe":
-        blk["moe"] = moe_mod.init_moe(gen, cfg.moe_spec, **kw)
+        blk["moe"] = moe_mod.init_moe(gen, cfg.moe_spec, weight=weight, **kw)
     else:
-        blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+        blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, weight=weight, **kw)
     return blk
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
+                weight=stack_layers) -> Params:
     """Random weights with the reference's distributions, drawn from an
     explicit ``torch.Generator`` on ``device`` (default ``cuda``; the numbers
     differ from ``jax.random`` — bridge JAX params with ``interop`` to
     compare). Layer weights are stacked (L, …); the hybrid's shared block
-    ``shared_attn`` is one unstacked block."""
+    ``shared_attn`` is one unstacked block. Each matmul weight is drawn a
+    layer at a time and stored by ``weight(layers, lead)`` — by default
+    stacked in ``cfg.dtype``; ``precision.qat.quantizing_store`` encodes
+    each layer as it is drawn, so the compute-dtype tree never exists
+    whole."""
     from repro_torch import resolve_device
 
     _check_family(cfg)
@@ -168,12 +174,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
         "final_norm": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
     }
     if cfg.family in ("dense", "moe"):
-        params["layers"] = _init_attn_block(gen, cfg, **kw)
+        params["layers"] = _init_attn_block(gen, cfg, weight, **kw)
         return params
     params["layers"] = {"norm": init_rmsnorm(cfg.d_model, **kw),
-                        "mamba": ssm_mod.init_mamba2(gen, cfg.ssm_spec, **kw)}
+                        "mamba": ssm_mod.init_mamba2(gen, cfg.ssm_spec, weight=weight,
+                                                     **kw)}
     if cfg.family == "hybrid":
-        params["shared_attn"] = _init_attn_block(gen, cfg, dtype=dt, device=dev)
+        params["shared_attn"] = _init_attn_block(gen, cfg, weight, dtype=dt, device=dev)
     return params
 
 
@@ -319,18 +326,21 @@ def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``last_pos``, :class:`DecodeState`) as the reference's ``prefill``
     returns them. The dense and moe families' state holds one ring-buffer
     :class:`~repro_torch.models.attention.KVCache` of stacked (L, …)
-    planes, sized ``max(S, pad_to)`` rows and quantized at
+    planes, sized ``max(S, pad_to)`` rows — the last ``cfg.window`` rows
+    where a window is shorter than S — and quantized at
     ``cfg.precision.kv_bits``; the ssm family's is :func:`prefill`'s
     (``pad_to`` unused); the hybrid's is :func:`prefill`'s with its shared
     caches sized ``max(S, pad_to)`` rows. The legacy loop writes a decoded
     row at ``min(length, rows − 1)``: without ``pad_to`` > S the first step
-    overwrites the last prompt row, as the reference's."""
+    overwrites the last prompt row, as the reference's; with a window at
+    ``length % rows`` (ROADMAP C24)."""
     _check_family(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, tokens, cfg, last_pos, layers, pad_to)
     logits, ks, vs = _prefill_dense(params, tokens, cfg, last_pos, layers)
-    caches = [attn.prefill_cache_from_kv(k, v, kv_bits=cfg.precision.kv_bits,
-                                         pad_to=pad_to) for k, v in zip(ks, vs)]
+    caches = [attn.prefill_cache_from_kv(k, v, window=cfg.window,
+                                         kv_bits=cfg.precision.kv_bits, pad_to=pad_to)
+              for k, v in zip(ks, vs)]
     return logits, DecodeState(_stack_kv(caches), step=tokens.shape[1])
 
 
@@ -401,7 +411,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
                       device=None) -> DecodeState:
     """Zero caches for ``batch`` sequences on ``device`` (default ``cuda``).
     The dense and moe families' is an empty ring-buffer KV cache of ``smax``
-    rows a layer at ``cfg.precision.kv_bits``. The ssm family's cache is O(1) in
+    rows a layer (``min(window, smax)`` with a sliding window) at
+    ``cfg.precision.kv_bits``. The ssm family's cache is O(1) in
     the sequence (``smax`` is unused); its conv cache is bf16 whatever the
     compute dtype, as in the reference. The hybrid has the ssm family's
     caches and one ring KV cache of ``smax`` rows per application of its
@@ -411,14 +422,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
     _check_family(cfg)
     dev = resolve_device(device)
 
-    def kv_caches(n):
-        one = attn.init_kv_cache(batch, smax, cfg.n_kv_heads, cfg.head_dim,
+    def kv_caches(n, rows=smax):
+        one = attn.init_kv_cache(batch, rows, cfg.n_kv_heads, cfg.head_dim,
                                  kv_bits=cfg.precision.kv_bits, dtype=cfg.dtype,
                                  device=dev)
         return _stack_kv([one] * n)
 
     if cfg.family in ("dense", "moe"):
-        return DecodeState(kv_caches(cfg.n_layers), step=0)
+        rows = min(cfg.window, smax) if cfg.window else smax
+        return DecodeState(kv_caches(cfg.n_layers, rows), step=0)
     one = ssm_mod.init_mamba_cache(batch, cfg.ssm_spec, device=dev)
     shared = (kv_caches(cfg.n_layers // cfg.shared_attn_every)
               if cfg.family == "hybrid" else None)
@@ -434,8 +446,8 @@ def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
     f32 with the vocab pad masked, new state). ``state`` is only read: the
     new state's tensors are new, so a discarded step leaves it as it was.
     The dense and moe families append each layer's K/V row to its ring
-    cache and attend in plain PyTorch (``attention_decode_step``), as the
-    reference does; the hybrid does so in its shared block, on the cache
+    cache (at ``length % rows`` with a sliding window) and attend in plain
+    PyTorch (``attention_decode_step``), as the reference does; the hybrid does so in its shared block, on the cache
     of that application."""
     _check_family(cfg)
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)

@@ -25,6 +25,8 @@ reference.
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -51,6 +53,16 @@ def _auto_packed(bits: int, w: torch.Tensor, packed: bool | None) -> bool:
     if packed is not None:
         return packed
     return bits == 4 and w.shape[-1] % 2 == 0
+
+
+def _store_scheme(bits: int, layout: str, w: torch.Tensor,
+                  packed: bool | None = None) -> QScheme:
+    """The scheme of matmul weight ``w`` stored at ``bits`` in ``layout``
+    (int: 4-bit codes packed where the out-channel dim is even, unless
+    ``packed`` says)."""
+    if layout == "bitplane":
+        return QScheme.bitplane(bits)
+    return _weight_scheme(bits, packed=_auto_packed(bits, w, packed))
 
 
 def _map_weights(params, fn, table_fn=None):
@@ -151,32 +163,56 @@ def quantize_param_tree(params, bits: int = 8, optimal: bool = False,
     if layout == "bitplane" and (optimal or packed):
         raise ValueError("layout='bitplane' excludes optimal= and packed=")
 
-    def int_codes(w):
-        return _encode_by_layer(w, _weight_scheme(bits, packed=_auto_packed(bits, w, packed)))
-
-    def bitplane_codes(w):
-        return _encode_by_layer(w, QScheme.bitplane(bits))
+    def codes(w):
+        return _encode_by_layer(w, _store_scheme(bits, layout, w, packed))
 
     def optimal_codes(w):
         return _optimal_quantize_weight(w, bits)
 
-    if layout == "bitplane":
-        fn = table_fn = bitplane_codes
-    elif optimal:
-        fn, table_fn = optimal_codes, int_codes
-    else:
-        fn = table_fn = int_codes
-    return _map_weights(params, fn, table_fn if include_embedding else None)
+    fn = optimal_codes if optimal else codes
+    return _map_weights(params, fn, codes if include_embedding else None)
 
 
 def _encode_by_layer(w: torch.Tensor, scheme: QScheme) -> QTensor:
     """``encode(w, scheme)`` of a 2-D weight, or of a stacked (L, K, N) one
-    layer by layer with the per-layer codes and scales stacked."""
+    layer by layer (:func:`_encode_layers`)."""
     if w.ndim == 2:
         return encode(w, scheme)
-    parts = [encode(wi, scheme) for wi in w.unbind(0)]
-    return QTensor(torch.stack([q.codes for q in parts]),
-                   torch.stack([q.scale for q in parts]), parts[0].scheme)
+    return _encode_layers(iter(w.unbind(0)), w.shape[0], scheme)
+
+
+def _encode_layers(layers, n: int, scheme: QScheme) -> QTensor:
+    """The ``n`` layers of a stacked weight, each encoded as it comes and
+    its codes and scales written into (n, …) buffers allocated at the
+    first: no stack of the parts, so a stacked leaf's codes exist once."""
+    for i, wi in enumerate(layers):
+        q = encode(wi, scheme)
+        if i == 0:
+            codes = q.codes.new_empty((n, *q.codes.shape))
+            scale = q.scale.new_empty((n, *q.scale.shape))
+            out_scheme = q.scheme
+        codes[i], scale[i] = q.codes, q.scale
+        del q
+    return QTensor(codes, scale, out_scheme)
+
+
+def quantizing_store(bits: int, layout: str = "dense"):
+    """A weight store for ``init_params(cfg, weight=...)`` that encodes each
+    matmul weight a layer at a time as it is drawn — codes and scales
+    byte-identical to ``quantize_param_tree(init_params(cfg), bits=bits,
+    layout=layout)`` — so the compute-dtype tree never exists whole: the
+    build holds the codes and one layer's draw and encode temporaries."""
+    if layout not in ("dense", "bitplane"):
+        raise ValueError(f"layout must be 'dense' or 'bitplane', got {layout!r}")
+
+    def store(layers, lead) -> QTensor:
+        first = next(layers)
+        scheme = _store_scheme(bits, layout, first)
+        if not lead:
+            return _encode_by_layer(first, scheme)
+        return _encode_layers(itertools.chain([first], layers), lead[0], scheme)
+
+    return store
 
 
 class _STE(torch.autograd.Function):

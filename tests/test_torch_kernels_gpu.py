@@ -104,6 +104,11 @@ HYBRID_QMM_SHAPES = [(m, k, n) for m in (4, 4096)
 # and the legacy prefill (M 4096)
 MOE_QMM_SHAPES = [(m, k, n) for m in (4, 64, 1024, 4096)
                   for k, n in ((1536, 40), (1536, 512), (512, 1536))]
+# slice 11's mixtral-8x7b: the router (K 4096, N 8: int8 rows of 8 bytes,
+# packed int4 rows of 4, one mostly masked tensor-core tile) at decode M 2
+# and the prefill's M 16384, and k/v (4096, 1024) at the 8193 f32 rows of
+# chip_smoke.py's [check window]
+MIXTRAL_QMM_SHAPES = [(2, 4096, 8), (16384, 4096, 8), (8193, 4096, 1024)]
 
 
 @pytest.fixture
@@ -162,6 +167,14 @@ def test_qmm_kernel_matches_plain_at_hybrid_shapes(cuda, m, k, n, bits, packed):
 @pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 def test_qmm_kernel_matches_plain_at_moe_shapes(cuda, m, k, n, bits, packed, xdtype):
+    _check_qmm(cuda, m, k, n, bits, packed, xdtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", MIXTRAL_QMM_SHAPES)
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_qmm_kernel_matches_plain_at_mixtral_shapes(cuda, m, k, n, bits, packed, xdtype):
     _check_qmm(cuda, m, k, n, bits, packed, xdtype)
 
 

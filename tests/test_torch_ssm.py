@@ -351,14 +351,17 @@ def test_more_than_one_group_raises():
 
 @pytest.mark.parametrize("over,exc,match", [
     (dict(family="moe"), ValueError, "n_experts"),
-    (dict(window=8), NotImplementedError, "ROADMAP A6"),
+    (dict(family="hybrid", shared_attn_every=1, window=8), NotImplementedError,
+     "ROADMAP A6"),
     (dict(family="vlm"), NotImplementedError, "ROADMAP A6"),
     (dict(family="audio"), NotImplementedError, "ROADMAP A6")],
     ids=["over0", "over1", "over2", "over3"])
 def test_unported_families_name_a6(over, exc, match):
-    """Windows, vlm and audio wait for ROADMAP A6; the moe family is ported
-    (slice 10), and the reduced gemma-2b as an moe model has no experts
-    (``n_experts=0``), which raises a ValueError."""
+    """A window on the hybrid, vlm and audio wait for ROADMAP A6; the moe
+    family is ported (slice 10), and the reduced gemma-2b as an moe model
+    has no experts (``n_experts=0``), which raises a ValueError. Windows on
+    the dense and moe families are ported (slice 11,
+    ``test_torch_window.py``)."""
     cfg = tconfigs.get_reduced("gemma-2b", **over)
     with pytest.raises(exc, match=match):
         TT.init_params(cfg, device="cpu")
@@ -374,13 +377,14 @@ def test_hybrid_without_shared_attn_every_raises():
 
 
 def test_dense_legacy_paths_name_a6():
-    """What the legacy loop still lacks names A6: a sliding-window ring
-    cache and the architectures not ported yet."""
-    cfg = tconfigs.get_reduced("gemma-2b", window=8)
+    """What the legacy loop still lacks names A6: a window on the hybrid's
+    shared ring caches and the architectures not ported yet (the dense and
+    moe families' sliding-window ring is slice 11's)."""
+    cfg = tconfigs.get_reduced("zamba2-2.7b", window=8)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TT.init_decode_state(cfg, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        serve("mixtral-8x7b", device="cpu", gen=2)
+        serve("llama-3.2-vision-11b", device="cpu", gen=2)
 
 
 def test_qkv_bias_inits_zero_biases_on_q_k_v():
