@@ -98,7 +98,8 @@ NVIDIA card.
    speculation, on the card and on the CPU's plain path, and checks equal
    tokens;
 7. slice 5 — ``[cheb]``: Fig. 9 as ``benchmarks/bench_chebyshev.py`` runs
-   it at full size (cod-rna at its preset 20000 × 8, 12 epochs; logistic
+   it at full size (cod-rna at its preset 20000 × 8, 6 epochs — the
+   benchmark's 12, cut for slice 12's time; logistic
    and SVM in fp32, Chebyshev 'double' at degree 15 × 4-bit samples and
    the 8-bit nearest straw man) with the benchmark's two criteria; the
    SVM's ℓ1 refetch at 8 bits for 8 epochs (refetched fraction < 0.25,
@@ -160,8 +161,9 @@ NVIDIA card.
    each prompt bucket; qwen2.5-14b's legacy prefill M 128 at int8);
    ``[serve-dense]``: full-width gemma-7b, granite-3-8b and qwen2.5-14b at
    8/8, and qwen2.5-14b at 4/4, through ``serve_engine`` on the slice-1
-   trace with every gate of slice 1, each run's peak memory and a decode
-   profile; ``[serve-legacy-dense]``: full-width qwen2.5-14b through the
+   trace's prompts (budgets of at most 16 new tokens since slice 12's
+   cut) with every gate of slice 1, each run's peak memory and a 2-step
+   decode profile; ``[serve-legacy-dense]``: full-width qwen2.5-14b through the
    legacy ``serve`` (ring KV cache, int8 weights and KV, 4 prompts of 32, 16
    new tokens; ``qmm`` 7 × L a prefill and a step, ``paged_decode_attn``
    0), its prefill logits bit-equal to the paged engine's prefill on the
@@ -176,7 +178,8 @@ NVIDIA card.
    and down, int8 and int4, at decode M 4 and the prefills' M 4096 and
    4092. ``[serve-hybrid]``: full-width zamba2-2.7b (54 Mamba2 layers and
    one shared attention block after every 9, random weights from seed 0)
-   through the legacy ``serve`` (4 prompts of 1024, 32 new tokens) at
+   through the legacy ``serve`` (4 prompts of 1024, 16 new tokens since
+   slice 12's cut, a 2-step decode profile) at
    weight/KV bits 8/8, 4/4 and bf16, with ``[serve-mamba]``'s gates: 54
    SSD launches a prefill on the tensor cores, ``qmm`` 2 × 54 + 7 × 6 =
    150 a prefill and a decode step at int bits (0 at bf16), peak memory,
@@ -193,12 +196,14 @@ NVIDIA card.
    the dispatch's capacity 1024 and the legacy prefill's 4096; ``[kernel]
    paged_decode_attn moe``: B10 at its (24, 8, 64) layout (D 64, R 3);
    ``[serve-moe]``: full-width granite-moe-3b-a800m (40 experts, top 8,
-   random weights from seed 0) through ``serve_engine`` at 8/8 and 4/4 with
-   every gate of slice 1 — ``qmm`` 32 × (4 + 1 + 3 × 40) = 4000 launches a
+   random weights from seed 0) through ``serve_engine`` at 8/8 and 4/4 on
+   the slice-1 trace's prompts (budgets of at most 16 new tokens since
+   slice 12's cut) with every gate of slice 1 — ``qmm`` 32 × (4 + 1 + 3 × 40) = 4000 launches a
    decode step and a prefill, one a projection, the router and each expert
    slice, at checked shapes; ``paged_decode_attn`` 32 a step — peak memory,
    weight bytes, a 1-step decode profile, and at 8/8 the cuda backend
-   against the ref backend on the card, teacher-forced (tokens equal but
+   against the ref backend on the card, teacher-forced for 4 steps (8
+   before slice 12's cut; tokens equal but
    at near-ties or after a routing difference; on the same input every
    routing difference at a near tie);
    ``[serve-legacy-moe]``: the legacy ``serve`` at 8/8 (4 prompts of 1024:
@@ -234,6 +239,45 @@ NVIDIA card.
    legacy loop on prompts of 64 (the ring's identity order) and 40 (C24)
    on the card against the CPU's plain path (tokens equal but at near
    ties or after a routing difference; raw-KV logits within 1e-5);
+13b. slice 12 — ``[kernel] qmm vlm``: B5 at every (K, N) of
+   llama-3.2-vision-11b — q/o, k/v, gate/up, down — int8 and int4, at
+   decode M 4 and the prefill's M 4096, and the cross blocks' k/v of the
+   4 × 4096 vision tokens at M 16384; ``[kernel] qmm audio``: B5 at
+   musicgen-medium's (1536, 1536), (1536, 6144) and (6144, 1536) at
+   decode M 4 and each prompt bucket of the trace; ``[kernel]
+   paged_decode_attn audio``: B10 at its (24, 24, 64) MHA layout (D 64,
+   R 1). ``[serve-vlm]``: full-width llama-3.2-vision-11b (a cross block
+   over 4096 vision tokens after every 5 of its 40 layers; random weights
+   from seed 0, each weight encoded a layer at a time as it is drawn, the
+   build timed) at 8/8 and 4/4 through ``make_prefill_step(cfg,
+   pad_to=1056)`` and ``make_serve_step`` (4 prompts of 1024 from the
+   reference's draw, 4096 f32 normal vision stand-ins a prompt from a
+   numpy seed, 32 new tokens): ``qmm`` 40 × 7 + 8 × 4 = 312 a prefill and
+   40 × 7 + 8 × 2 = 296 a decode step at checked shapes on plan's core,
+   ``paged_decode_attn`` 0; the ring 1056 rows a layer; the cross caches
+   8 × 2 planes of (4, 4096, 8, 128) raw bf16, 536,870,912 bytes, at both
+   widths; the codes' bytes; peak memory under 80 GB; a profiled prefill
+   (device ms, ``qmm``'s and the cross blocks' shares) and decode step
+   (device ms, idle share, wall). ``[check cross]``: cross blocks 0 and 7
+   of the int8 build at f32 on the stand-ins — the prefill's contribution
+   at the last position within 1e-4 of ``_cross_decode``'s on the cached
+   K/V, nonzero, and exactly 0 on zero vision tokens (the reference's
+   legacy loop feeds zeros, ROADMAP C25); ``[check vlm]``: the reduced
+   model at f32, 0/0 and 8/8, card against the CPU's plain path (tokens
+   equal, raw-KV logits within 1e-5). ``[serve-audio]``: full-width
+   musicgen-medium through ``serve_engine`` on the slice-1 trace at 8/8
+   and 4/4 with every gate of ``[serve]`` (``qmm`` 7 × 48 a decode step,
+   ``paged_decode_attn`` 48) and a 2-step decode profile; ``[check
+   audio]``: the reduced model through the engine at 0/0 (bf16: B10 takes
+   raw pages in bf16 alone; first tokens equal), 8/8 and 4/4 (f32: every
+   token equal), card against the CPU's plain path. To pay for these phases slice 12 cut
+   depth from four earlier ones, each still launching every kernel at
+   every shape it did and keeping its gates: ``[serve-dense]`` and
+   ``[serve-moe]`` serve the trace with budgets of at most 16 new tokens
+   (the same prompts), ``[serve-dense]`` profiles 2 decode steps and
+   ``[serve-moe]``'s teacher-forced check runs 4; ``[cheb]`` runs Fig. 9
+   for 6 epochs; ``[serve-hybrid]`` decodes 16 new tokens and profiles 2
+   steps;
 14. every plane the paths draw on the card takes the threefry kernel: a
    phase fails if ``prng`` made an int64 hash on the card in it (its
    counter, set to 0 just before each phase but the kernels'), and the main
@@ -389,11 +433,13 @@ ROW_ABSMAX_BEFORE_MS = {(6000, 5000): 0.0542, (16, 5000): 0.0077}
 SQ_SE = 5.0                   # ... within 5 standard errors of x
 # Fig. 9 as benchmarks/bench_chebyshev.py runs it at full size: cod-rna
 # (make_dataset's preset: 20000 × 8 training rows whatever n_train asks,
-# ROADMAP C12), 12 epochs; logistic lr 0.4, SVM lr 0.2 with the ball prox;
+# ROADMAP C12), 6 epochs (the benchmark's 12 halved for the script's time:
+# on the port's CPU path both criteria hold at 4, 6 and 12 epochs, the
+# SVM's at 6 by 0.030, at 12 by 0.035); logistic lr 0.4, SVM lr 0.2 with the ball prox;
 # fp32, cheb_8bit ('double': degree 15 × 4-bit samples) and nearest_8bit.
 # Its criteria: Chebyshev test accuracy within 0.05 (logistic) / 0.12 (SVM)
 # of fp32's, and the straw man at least as good less 0.02 (§5.4).
-CHEB = dict(epochs=12, batch=16)
+CHEB = dict(epochs=6, batch=16)
 CHEB_RUNS = {"fp32": ("full", 8), "cheb_8bit": ("double", 4), "nearest_8bit": ("nearest", 8)}
 CHEB_MODELS = {"logistic": (0.4, "none", 0.05), "svm": (0.2, "ball", 0.12)}
 # App. G.4 as tests/test_linear_models.py runs it: cod-rna seed 1, SVM,
@@ -495,17 +541,18 @@ DENSE_WIDTH = {"gemma-2b": (18, 2048, 8, 1, 256, 16384, 256000),
                "granite-3-8b": (40, 4096, 32, 8, 128, 12800, 49155),
                "qwen2.5-14b": (48, 5120, 40, 8, 128, 13824, 152064),
                "granite-moe-3b-a800m": (32, 1536, 24, 8, 64, 512, 49155),
-               "mixtral-8x7b": (32, 4096, 32, 8, 128, 14336, 32000)}
+               "mixtral-8x7b": (32, 4096, 32, 8, 128, 14336, 32000),
+               "musicgen-medium": (48, 1536, 24, 24, 64, 6144, 2048)}
 DENSE_ARCHS = ("gemma-7b", "granite-3-8b", "qwen2.5-14b")
 DENSE_RUNS = (("gemma-7b", 8), ("granite-3-8b", 8), ("qwen2.5-14b", 8), ("qwen2.5-14b", 4))
 LEGACY_DENSE = dict(arch="qwen2.5-14b", weight_bits=8, kv_bits=8, batch=4, prompt_len=32,
                     gen=16)
 DENSE_BIAS_SEED = 5           # [check dense]: nonzero q/k/v biases, N(0, 0.25)
 # slice 9: full-width zamba2-2.7b (the hybrid family) through the legacy
-# serve loop — 4 random prompts of 1024 tokens and 32 new tokens, as
-# [serve-mamba], at weight/KV bits 8/8, 4/4 and bf16/bf16; the shared
-# block's six ring caches hold prompt + gen rows
-HYBRID = dict(batch=4, prompt_len=1024, gen=32)
+# serve loop — 4 random prompts of 1024 tokens, as [serve-mamba], and 16
+# new tokens (32 before slice 12's depth cut), at weight/KV bits 8/8, 4/4
+# and bf16/bf16; the shared block's six ring caches hold prompt + gen rows
+HYBRID = dict(batch=4, prompt_len=1024, gen=16)
 # layers, d_model, SSM heads, head_dim, state, shared_attn_every
 HYBRID_WIDTH = (54, 2560, 80, 64, 64, 9)
 HYBRID_BITS = (8, 4, 0)
@@ -585,7 +632,7 @@ MOE_QMM_KN = {(1536, 1536): "q, o", (1536, 512): "k, v, expert gate, up",
 # token may differ where the ref's top two logits lie within
 # HYBRID_TIE["bfloat16"] of the largest or after a routing difference of
 # its sequence; those counts are reported
-MOE_FORCED_STEPS = 8
+MOE_FORCED_STEPS = 4
 # decode steps a moe profile covers: a step is 4000 qmm launches and ~12k
 # device events, and torch.profiler takes ~10 s a step to read them back
 MOE_PROFILE_STEPS = 1
@@ -635,6 +682,60 @@ WINDOW_BINDS = 100
 MIXTRAL_CHECKS = ((0, 0), (8, 8))
 MIXTRAL_CHECK_PROMPTS = (64, 40)
 MIXTRAL_CHECK_TOL = 1e-5
+# slice 12: full-width llama-3.2-vision-11b (40 layers, d_model 4096, 32
+# query heads and 8 KV heads of 128, d_ff 14336, vocab 128256, rope θ 5e5;
+# a cross-attention block after every 5 layers over 4096 vision tokens, 8
+# in all; random weights from seed 0, each encoded a layer at a time as it
+# is drawn) through make_prefill_step (pad_to = prompt + gen) and
+# make_serve_step at weight/KV bits 8/8 and 4/4: 4 prompts of 1024 tokens
+# (the reference's draw), 4096 vision stand-ins a prompt (f32 normal from a
+# numpy seed, as the reference's tests/test_arch_smoke._batch draws them
+# from its key), 32 new tokens
+VLM = "llama-3.2-vision-11b"
+VLM_BITS = (8, 4)
+VLM_RUN = dict(batch=4, prompt_len=1024, gen=32)
+VLM_WIDTH = (40, 4096, 32, 8, 128, 14336, 128256, 5, 4096)
+VLM_VISION_SEED = 0
+# B5 at each (K, N) of the model — q and o, k and v, gate and up, down — at
+# decode M 4 and the prefill's M 4096, and the cross blocks' k and v of the
+# vision tokens at M 4 × 4096
+VLM_QMM_KN = {(4096, 4096): "q, o", (4096, 1024): "k, v", (4096, 14336): "gate, up",
+              (14336, 4096): "down"}
+VLM_CROSS_M = VLM_RUN["batch"] * 4096
+# qmm launches: 7 a self layer and 4 a cross block a prefill (q of the
+# prompt, k and v of the vision tokens, o), 7 and 2 (q, o) a decode step
+VLM_QMM_PREFILL = 40 * 7 + 8 * 4
+VLM_QMM_STEP = 40 * 7 + 8 * 2
+# the cross caches: 8 blocks × k and v of (4, 4096, 8, 128) raw bf16
+VLM_CROSS_BYTES = 8 * 2 * VLM_CROSS_M * 8 * 128 * 2
+# [check cross]: cross blocks 0 and 7 of the int8 build at f32 on the
+# stand-ins: the prefill's cross output at the last of 64 positions against
+# _cross_decode's on the cached K/V, within CROSS_CHECK_TOL of the block's
+# largest contribution (f32 sums of 4096 rows in another order)
+CROSS_CHECK_BLOCKS = (0, 7)
+CROSS_CHECK_TOL = 1e-4
+# [check vlm]: the reduced model card vs CPU at f32, the legacy loop on 2
+# prompts of 40 with seeded vision tokens + 8 decode steps
+VLM_CHECKS = ((0, 0), (8, 8))
+VLM_CHECK_TOL = 1e-5
+# slice 12: full-width musicgen-medium (the audio family: 48 layers,
+# d_model 1536, 24 MHA heads of 64, a gelu MLP of 6144, vocab 2048; random
+# weights from seed 0) through serve_engine on the [serve] trace at
+# weight/KV bits 8/8 and 4/4; B10 at its (24, 24, 64) layout (R 1, D 64)
+AUDIO = "musicgen-medium"
+AUDIO_BITS = (8, 4)
+ATTN_AUDIO_LAYOUT = (24, 24, 64)
+# [check audio]: (dtype, weight bits, KV bits) of each engine run, card vs
+# CPU: raw KV at bf16 (B10 takes raw pages in bf16 alone), int at f32
+AUDIO_CHECKS = (("bfloat16", 0, 0), ("float32", 8, 8), ("float32", 4, 4))
+# depth cut to pay for slice 12's phases: the trace that [serve-dense] and
+# [serve-moe] serve draws at most 16 new tokens a request, not 32 (its
+# prompts, and so every prefill shape, are the same: make_trace draws each
+# prompt's length before its budget and its tokens after), and
+# [serve-dense]'s decode profile covers 2 steps
+DEPTH_MAX_NEW = 16
+DENSE_PROFILE_STEPS = 2
+HYBRID_PROFILE_STEPS = 2
 
 
 def _fail(msg: str, code: int):
@@ -1012,9 +1113,10 @@ def _qmm_per_layer(cfg) -> int:
 
 
 def serve(bits: int, dev, checked, arch: str = "gemma-2b", tag: str = "serve", extra=None,
-          profile_steps: int = 5):
+          profile_steps: int = 5, max_new: int = SERVE["max_new"]):
     """Drive the main path once: ``serve_engine`` on full-width ``arch`` at
-    weight/KV bits ``bits`` on the slice-1 trace; fail if ``qmm`` launched
+    weight/KV bits ``bits`` on the slice-1 trace (its requests' budgets
+    drawn up to ``max_new``; the prompts do not depend on it); fail if ``qmm`` launched
     at a shape outside ``checked`` (the checked rows' keys); returns
     (launch counts, qmm shape counts, summary). The summary's peak is the
     card's allocation peak over the call (weights drawn in bf16 and
@@ -1033,7 +1135,8 @@ def serve(bits: int, dev, checked, arch: str = "gemma-2b", tag: str = "serve", e
     PA.launches = 0
     t0 = time.perf_counter()
     engine, results = serve_engine(
-        arch, reduced=False, weight_bits=bits, kv_bits=bits, device=dev, **SERVE)
+        arch, reduced=False, weight_bits=bits, kv_bits=bits, device=dev,
+        **{**SERVE, "max_new": max_new})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
@@ -3762,7 +3865,8 @@ def serve_ssm(dev, ssd_rows, qmm_rows, arch="mamba2-780m"):
     against prefill(prompt[:, :-1]) + one decode step, reported; the
     serving peak memory; a profile of one prefill as serve() runs it (SSD's
     and ``qmm``'s device ms in it, its peak memory) and, from its state, of
-    5 decode steps after one (their peak too); that state's cache bytes
+    5 decode steps after one (``HYBRID_PROFILE_STEPS`` for the hybrid; their
+    peak too); that state's cache bytes
     (the Mamba2 caches and the shared KV caches apart). Then
     the same consistency at f32 (f32 weights, seed 0), gated at the run's
     tolerance of the largest |logit|. Only the serve() calls' launches are
@@ -3869,7 +3973,8 @@ def serve_ssm(dev, ssd_rows, qmm_rows, arch="mamba2-780m"):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        prof_decode = profile_steps(step, params, state, nxt)
+        prof_decode = profile_steps(step, params, state, nxt,
+                                    HYBRID_PROFILE_STEPS if hybrid else 5)
         decode_peak = torch.cuda.max_memory_allocated() - base
         cache = {"layers": tree_nbytes(state.layers._asdict()) // bsz,
                  "shared": (tree_nbytes({k: v for k, v in state.shared._asdict().items()
@@ -3900,7 +4005,7 @@ def serve_ssm(dev, ssd_rows, qmm_rows, arch="mamba2-780m"):
               f"ms/step, {tps:.1f} tok/s; peak {call_peak / 2**30:.2f} GiB over the serve() "
               f"call (weight init included), {serving_peak / 2**30:.2f} GiB serving "
               f"(prefill, prefill, step), {prefill_peak / 2**30:.2f} over one prefill, "
-              f"{decode_peak / 2**30:.2f} over 6 decode steps; cache "
+              f"{decode_peak / 2**30:.2f} over {prof_decode['steps'] + 1} decode steps; cache "
               f"{run['cache_bytes_per_sequence']:,} bytes/sequence (Mamba2 "
               f"{cache['layers']:,}, shared KV {cache['shared']:,}); weights "
               f"{run['weight_bytes']:,} bytes; launches {launches}; "
@@ -4065,7 +4170,9 @@ def serve_dense(dev, checked):
     tokens in the vocab, ``qmm`` 7 × L × (decode steps + admitted) launches
     at checked shapes on plan's core, ``paged_decode_attn`` L × decode
     steps; each run's peak memory and a decode profile."""
-    return {f"{arch} {bits}/{bits}": serve(bits, dev, checked, arch, "serve-dense")
+    return {f"{arch} {bits}/{bits}": serve(bits, dev, checked, arch, "serve-dense",
+                                           profile_steps=DENSE_PROFILE_STEPS,
+                                           max_new=DEPTH_MAX_NEW)
             for arch, bits in DENSE_RUNS}
 
 
@@ -4451,7 +4558,8 @@ def serve_moe(dev, checked):
     for bits in MOE_BITS:
         forced = (lambda e: _moe_forced(e, dev)) if bits == MOE_BITS[0] else None
         launches, shapes, summary = serve(bits, dev, checked, MOE, "serve-moe",
-                                          extra=forced, profile_steps=MOE_PROFILE_STEPS)
+                                          extra=forced, profile_steps=MOE_PROFILE_STEPS,
+                                          max_new=DEPTH_MAX_NEW)
         st = summary
         prof = st["profile"]
         print(f"[serve-moe] {bits}/{bits}: decode {st['mean_decode_step_ms']:.2f} ms/step, "
@@ -5011,6 +5119,432 @@ def agree_mixtral(dev):
     return out
 
 
+def check_qmm_vlm(dev, flush):
+    """B5 at every (K, N) of llama-3.2-vision-11b (``VLM_QMM_KN``), int8
+    and int4, at decode M 4 (SIMT) and the prefill's M 4096 (tensor
+    cores), and the cross blocks' k and v of the 4 × 4096 vision tokens at
+    M 16384."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bsz, plen = VLM_RUN["batch"], VLM_RUN["prompt_len"]
+    rows = []
+    for bits in (8, 4):
+        for (k, n), what in VLM_QMM_KN.items():
+            for m, role in ((bsz, "decode"), (bsz * plen, "prefill")):
+                rows.append(_qmm_row(dev, gen, flush, bits, m, k, n,
+                                     f" (llama-3.2-vision {what}; {role})"))
+        rows.append(_qmm_row(dev, gen, flush, bits, VLM_CROSS_M, 4096, 1024,
+                             " (llama-3.2-vision cross k, v of the vision tokens)"))
+    return rows
+
+
+def check_qmm_audio(dev, flush):
+    """B5 at every (K, N) of musicgen-medium — q, k, v, o (1536, 1536),
+    gate and up (1536, 6144), down (6144, 1536) — int8 and int4, at decode
+    M 4 and each prompt bucket of the trace [serve-audio] serves it."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ms = {SERVE["max_slots"]: "decode"}
+    for m in sorted(_prompt_buckets(AUDIO)):
+        ms[m] = f"prefill, bucket {m}"
+    rows = []
+    for bits in (8, 4):
+        for (k, n), what in _dense_kn(AUDIO).items():
+            for m, role in ms.items():
+                rows.append(_qmm_row(dev, gen, flush, bits, m, k, n,
+                                     f" (musicgen {what}; {role})"))
+    return rows
+
+
+def check_paged_attn_audio(dev, flush):
+    """B10 at musicgen-medium's MHA layout (24 query and 24 KV heads of 64:
+    R 1 at D 64, which no earlier path ran) at ``ATTN_LENS``, KV bits 0, 8
+    and 4: [serve-audio]'s rows."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return _attn_layout_rows(dev, flush, gen, ATTN_AUDIO_LAYOUT, ATTN_LENS, True)
+
+
+def _vlm_width(cfg) -> tuple:
+    return _width(cfg) + (cfg.cross_attn_every, cfg.n_vis_tokens)
+
+
+def _vlm_matrix_params(cfg) -> int:
+    """Entries of every matmul weight of a vlm model: q, k, v, o, gate, up
+    and down of each self layer, q, k, v and o of each cross block."""
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    attn_ = 2 * d * q + 2 * d * kv
+    return cfg.n_layers * (attn_ + 3 * d * cfg.d_ff) + \
+        cfg.n_layers // cfg.cross_attn_every * attn_
+
+
+def _vision_stand_ins(dev):
+    """The 4 × 4096 f32 vision stand-ins, normal from ``VLM_VISION_SEED``."""
+    import torch
+
+    rng = np.random.default_rng(VLM_VISION_SEED)
+    vis = rng.standard_normal((VLM_RUN["batch"], 4096, 4096), dtype=np.float32)
+    return torch.from_numpy(vis).to(dev)
+
+
+def _serve_vlm_bits(dev, checked, bits: int, vision):
+    """One [serve-vlm] run at weight/KV bits ``bits`` (see
+    :func:`serve_vlm`); returns (run, cross blocks 0 and 7 at 8 bits, else
+    None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import layer_view
+    from repro_torch.quant import tree_nbytes
+
+    bsz, plen, gen = VLM_RUN["batch"], VLM_RUN["prompt_len"], VLM_RUN["gen"]
+    tag = f"[serve-vlm] {bits}/{bits}"
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plan = S._resolve_plan(None, bits, bits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params = S._build(VLM, reduced=False, plan=plan, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    print(f"{tag} build: {_vlm_matrix_params(cfg) / 1e9:.2f} B matmul weights drawn and "
+          f"encoded a layer at a time in {build_s:.1f} s", flush=True)
+    if _vlm_width(cfg) != VLM_WIDTH or cfg.family != "vlm":
+        raise AssertionError(f"not full-width {VLM}: {cfg}")
+    prompts = prng.randint(prng.fold_in(prng.PRNGKey(0), 1), (bsz, plen), 0,
+                           cfg.vocab_size, device=dev)
+    batch = {"tokens": prompts, "vision": vision}
+    prefill = make_prefill_step(cfg, pad_to=plen + gen)
+    step = make_serve_step(cfg)
+    # the main path: one prefill and gen decode steps (a warm-up step, thrown
+    # away as serve() throws it, then gen − 1 timed ones)
+    Q.reset_counters()
+    PA.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_qmm = Q.launches
+    first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    step(params, state, first)
+    torch.cuda.synchronize()
+    out = [prompts, first]
+    t0 = time.perf_counter()
+    st = state
+    for _ in range(gen - 1):
+        _, nxt, st = step(params, st, out[-1])
+        out.append(nxt[:, None])
+    tokens = torch.cat(out, dim=1)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (gen - 1)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"qmm": Q.launches, "paged_decode_attn": PA.launches}
+    cores = _core_gate(tag, Q, checked)
+    shapes = dict(Q.shape_launches)
+    tokens = tokens.cpu().numpy()
+    want = {"qmm": VLM_QMM_PREFILL + VLM_QMM_STEP * gen, "paged_decode_attn": 0}
+    if prefill_qmm != VLM_QMM_PREFILL or launches != want:
+        raise AssertionError(f"{tag} launches {launches} (prefill qmm {prefill_qmm}), "
+                             f"expected {want}")
+    cross_m = sum(c for (packed, m, k, n), c in shapes.items() if m == VLM_CROSS_M)
+    if cross_m != 2 * n_cross:
+        raise AssertionError(f"{tag} {cross_m} qmm launches at the vision tokens' M "
+                             f"{VLM_CROSS_M}, expected {2 * n_cross}")
+    if tokens.shape != (bsz, plen + gen) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"{tag} tokens {tokens.shape}, range "
+                             f"{tokens.min()}..{tokens.max()}")
+    ring, cross = st.layers, st.cross
+    cross_bytes = sum(t.numel() * t.element_size() for t in cross.values())
+    if ring.k.shape[2] != plen + gen or cross_bytes != VLM_CROSS_BYTES \
+            or any(t.dtype != cfg.dtype or tuple(t.shape) != (n_cross, bsz, 4096, 8, 128)
+                   for t in cross.values()) \
+            or not torch.equal(cross["k"], state.cross["k"]):
+        raise AssertionError(f"{tag} ring of {ring.k.shape[2]} rows; cross caches "
+                             f"{[(tuple(t.shape), t.dtype) for t in cross.values()]}, "
+                             f"{cross_bytes} bytes")
+    code_bytes, weight_bytes = _code_bytes(params), tree_nbytes(params)
+    table_bytes = tree_nbytes(params["embed"])
+    if code_bytes != _vlm_matrix_params(cfg) * bits // 8 or peak >= 80e9:
+        raise AssertionError(f"{tag} code bytes {code_bytes} (expected "
+                             f"{_vlm_matrix_params(cfg) * bits // 8}), peak {peak}")
+    del st
+    # a profiled prefill: device ms, qmm's share and the cross blocks' (their
+    # device time read by CUDA events around each block: the queue stays full)
+    t1 = time.perf_counter()
+    marks, block = [], T._cross_block_kv
+
+    def timed_block(cfg_, blk, x, vis):
+        s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_.record()
+        res = block(cfg_, blk, x, vis)
+        e_.record()
+        marks.append((s_, e_))
+        return res
+
+    T._cross_block_kv = timed_block
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill(params, batch)
+            torch.cuda.synchronize()
+    finally:
+        T._cross_block_kv = block
+    by_kernel, n_events = _device_kernels(prof)
+    device_ms = sum(by_kernel.values())
+    qmm_ms = sum(v for k_, v in by_kernel.items() if "qmm" in k_ or "splitk_reduce" in k_)
+    cross_ms = sum(s_.elapsed_time(e_) for s_, e_ in marks)
+    if len(marks) != n_cross or not device_ms or not 0 < qmm_ms <= device_ms:
+        raise AssertionError(f"{tag} profiled prefill: device {device_ms} ms, qmm {qmm_ms}, "
+                             f"{len(marks)} cross blocks timed")
+    Q.reset_counters()
+    prof_dec = profile_steps(step, params, state, first, 1)
+    if not prof_dec["device_ms_per_step"]:
+        raise AssertionError(f"{tag} the decode profile read no device time")
+    profiles_s = time.perf_counter() - t1
+    _core_gate(f"{tag} checks", Q, checked)
+    blocks = None
+    if bits == 8:
+        blocks = {i: _clone_tree(layer_view(params["cross"], i)) for i in CROSS_CHECK_BLOCKS}
+    run = {"arch": VLM, **VLM_RUN, "weight_bits": bits, "kv_bits": bits,
+           "tokens_shape": list(tokens.shape), "build_s": build_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": 1e3 * bsz / decode_ms,
+           "prefill_device_ms": device_ms, "prefill_qmm_device_ms": qmm_ms,
+           "prefill_cross_ms": cross_ms, "prefill_device_events": n_events,
+           "prefill_top_kernels_ms": dict(sorted(by_kernel.items(),
+                                                 key=lambda kv: -kv[1])[:8]),
+           "peak_bytes": peak, "launches": launches, "qmm_launches_by_core": cores,
+           "qmm_launches_prefill": prefill_qmm, "qmm_launches_per_decode_step": VLM_QMM_STEP,
+           "qmm_shape_launches": [[*k_, v] for k_, v in shapes.items()],
+           "ring_rows": ring.k.shape[2], "cross_cache_bytes": cross_bytes,
+           "ring_bytes_per_sequence": tree_nbytes(ring._asdict()) // bsz,
+           "code_bytes": code_bytes, "table_bytes": table_bytes,
+           "weight_bytes": weight_bytes, "decode_profile": prof_dec,
+           "profiles_s": profiles_s}
+    print(f"{tag}: {VLM} full width, tokens {tuple(tokens.shape)} in vocab; peak "
+          f"{peak / 2**30:.2f} GiB over the build and the run; weights "
+          f"{weight_bytes / 1e9:.3f} GB (codes {code_bytes / 1e9:.3f}, bf16 table "
+          f"{table_bytes / 1e9:.3f}); prefill {prefill_ms:.1f} ms ({bsz} x {plen}, "
+          f"{prefill_qmm} qmm launches, {cross_m} at the vision tokens' M {VLM_CROSS_M}); "
+          f"profiled prefill: device {device_ms:.2f} ms, qmm {qmm_ms:.2f} (share "
+          f"{qmm_ms / device_ms:.3f}), the {n_cross} cross blocks {cross_ms:.2f} (share "
+          f"{cross_ms / device_ms:.3f}); ring {ring.k.shape[2]} rows a layer, cross caches "
+          f"{cross_bytes:,} bytes raw {str(cfg.dtype).removeprefix('torch.')}; qmm "
+          f"{VLM_QMM_STEP} a decode step; decode {decode_ms:.2f} ms/step, profiled: device "
+          f"{prof_dec['device_ms_per_step']:.2f} ms, idle share "
+          f"{prof_dec['device_idle_share']:.3f}, wall {prof_dec['wall_ms_per_step']:.1f} "
+          f"ms; launches {launches} {cores}; profiles {profiles_s:.1f} s", flush=True)
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return run, blocks
+
+
+def serve_vlm(dev, checked):
+    """Slice 12's vlm path: full-width llama-3.2-vision-11b built by
+    ``launch.serve._build`` (every weight encoded a layer at a time as it
+    is drawn; the build timed) at weight/KV bits 8/8 and 4/4, through
+    ``make_prefill_step(cfg, pad_to=1056)`` and ``make_serve_step`` on
+    ``VLM_RUN``'s prompts and the vision stand-ins, the ``qmm`` and
+    ``paged_decode_attn`` counters set to 0 just before and read just after
+    the prefill and the decode steps: ``qmm`` 312 a prefill (2 × 8 of them
+    at the vision tokens' M 16384) and 296 a decode step, at checked shapes
+    on plan's core, ``paged_decode_attn`` 0 (the legacy loop attends in
+    plain PyTorch, as the reference); in-vocab tokens; the ring 1056 rows a
+    layer; the cross caches 8 × 2 planes of (4, 4096, 8, 128) raw bf16
+    (536,870,912 bytes) at both bit widths, left as they were by decode;
+    the codes' bytes those of every matrix at the bits; peak memory under
+    80 GB. Then a profiled prefill (device ms, ``qmm``'s share, the cross
+    blocks') and a profiled decode step (device ms, idle share, wall).
+    Returns ({bits: run}, cross blocks 0 and 7 of the int8 build for
+    [check cross], the vision stand-ins)."""
+    import torch
+
+    vision = _vision_stand_ins(dev)
+    out, blocks = {}, None
+    for bits in VLM_BITS:
+        out[f"{bits}/{bits}"], got = _serve_vlm_bits(dev, checked, bits, vision)
+        blocks = blocks or got
+        torch.cuda.empty_cache()
+    return out, blocks, vision
+
+
+def check_cross(dev, blocks, vision):
+    """The cross block's decode against its prefill at full width: for
+    cross blocks 0 and 7 of the int8 build at f32, on the vision stand-ins
+    and 4 × 64 random f32 rows, ``_cross_block_kv`` over the 64 rows (its
+    K/V of the vision tokens cached) against ``_cross_decode`` of the last
+    row on that cache: the two contributions within ``CROSS_CHECK_TOL`` of
+    the prefill's largest; the contribution nonzero; and on zero vision
+    tokens the block adds exactly 0 (ROADMAP C25)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get_config(VLM), dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(VLM_RUN["batch"], 64, cfg.d_model, generator=gen, device=dev)
+    out = {}
+    with torch.no_grad():
+        for i, blk in blocks.items():
+            full, ck, cv = T._cross_block_kv(cfg, blk, x, vision)
+            want = (full - x)[:, -1:]
+            got = T._cross_decode(cfg, blk, x[:, -1:], ck, cv) - x[:, -1:]
+            scale = float(want.abs().max())
+            zero, zk, zv = T._cross_block_kv(cfg, blk, x, torch.zeros_like(vision))
+            row = {"gap": float((got - want).abs().max()) / scale, "largest": scale,
+                   "zero_vision_adds_exactly_0": bool(torch.equal(zero, x)),
+                   "zero_vision_kv_all_0": not (zk.any() or zv.any())}
+            print(f"[check cross] {VLM} cross block {i}, f32, int8 weights: prefill's "
+                  f"contribution at the last of 64 positions against _cross_decode's on the "
+                  f"cached K/V of 4096 vision tokens: gap {row['gap']:.3e} of the largest "
+                  f"{scale:.4g} (tol {CROSS_CHECK_TOL:g}); zero vision tokens: K/V all 0 "
+                  f"{row['zero_vision_kv_all_0']}, the block adds exactly 0 "
+                  f"{row['zero_vision_adds_exactly_0']}", flush=True)
+            if not (row["gap"] <= CROSS_CHECK_TOL and scale > 0
+                    and row["zero_vision_adds_exactly_0"] and row["zero_vision_kv_all_0"]):
+                raise AssertionError(f"[check cross] block {i}: {row}")
+            out[i] = row
+    return out
+
+
+def agree_vlm(dev):
+    """The reduced llama-3.2-vision-11b (4 layers, a cross block after
+    every 2 over 16 vision tokens) at f32, weight/KV bits ``VLM_CHECKS``,
+    through the legacy loop (``make_prefill_step`` + 8 ``make_serve_step``
+    steps) on 2 prompts of 40 and seeded vision tokens, on the card
+    (kernels) against the CPU's plain path from the same weights, both the
+    ``cuda`` backend, each fed the CPU's greedy tokens: tokens equal, and
+    raw-KV logits within ``VLM_CHECK_TOL`` of the largest."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+
+    out = {}
+    for bits, kv_bits in VLM_CHECKS:
+        plan = PrecisionPlan(model_bits=bits, kv_bits=kv_bits,
+                             model_storage="int" if bits else "fake")
+        cfg = configs.get_reduced(VLM, dtype=torch.float32, precision=plan)
+        tree = T.init_params(cfg, seed=0, device="cpu")
+        tree = quantize_param_tree(tree, bits=bits) if bits else tree
+        rng = np.random.default_rng(3)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+        vis = torch.from_numpy(rng.standard_normal((2, cfg.n_vis_tokens, cfg.d_model),
+                                                   dtype=np.float32))
+        lgs, fed = {}, None
+        for label, where in (("cpu", "cpu"), ("card", dev)):
+            p = _tree_to(tree, where)
+            step = make_serve_step(cfg)
+            with registry.using("cuda"):          # CPU: the kernels' plain versions
+                logits, state = make_prefill_step(cfg, pad_to=49)(
+                    p, {"tokens": prompt.to(where), "vision": vis.to(where)})
+                got = [logits]
+                for i in range(8):
+                    tok = torch.argmax(got[-1], -1) if fed is None else fed[i]
+                    lg, _, state = step(p, state, tok.to(where, torch.int32)[:, None])
+                    got.append(lg[:, 0])
+            lgs[label] = [t.float().cpu()[:, :cfg.vocab_size] for t in got]
+            fed = [t.argmax(-1) for t in lgs["cpu"]]
+        same = sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
+                   for a, b in zip(lgs["card"], lgs["cpu"]))
+        gap = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(lgs["card"], lgs["cpu"]))
+        gated = not kv_bits
+        print(f"[check] reduced {VLM} f32 weight/KV bits {bits or 'raw'}/{kv_bits or 'raw'} "
+              f"legacy, 2 prompts of 40 with seeded vision tokens: card vs CPU plain path, "
+              f"fed the CPU's tokens — greedy tokens equal at {same}/9 positions; logits max "
+              f"rel diff {gap:.2e} ({'tol %g' % VLM_CHECK_TOL if gated else 'reported'})",
+              flush=True)
+        if same != 9 or (gated and gap > VLM_CHECK_TOL):
+            raise AssertionError(f"[check vlm] bits {bits}/{kv_bits}: tokens {same}/9, "
+                                 f"gap {gap}")
+        out[f"{bits}_{kv_bits}"] = {"positions_equal": same, "logits_max_rel_diff": gap}
+    return out
+
+
+def serve_audio(dev, checked):
+    """Slice 12's audio path: ``serve_engine`` on full-width
+    musicgen-medium at weight/KV bits 8/8 and 4/4 on the slice-1 trace with
+    every gate of ``[serve]`` (via :func:`serve`: ``qmm`` 7 × 48 launches a
+    decode step and a prefill, at checked shapes on plan's core;
+    ``paged_decode_attn`` 48 a step), peak memory and a 2-step decode
+    profile."""
+    import torch
+
+    out = {}
+    for bits in AUDIO_BITS:
+        launches, shapes, summary = serve(bits, dev, checked, AUDIO, "serve-audio",
+                                          profile_steps=DENSE_PROFILE_STEPS)
+        if summary["launches_per_decode_step"] != {"qmm": 7 * 48, "paged_decode_attn": 48}:
+            raise AssertionError(f"[serve-audio] {summary['launches_per_decode_step']}")
+        out[f"{bits}/{bits}"] = (launches, shapes, summary)
+        torch.cuda.empty_cache()
+    return out
+
+
+def agree_audio(dev):
+    """The reduced musicgen-medium through the paged engine on the card
+    (kernels) and on the CPU's plain path from the same weights (the
+    slice-1 trace's shape, 8 requests) at ``AUDIO_CHECKS``: at f32 (int
+    weights and KV) every request's tokens equal; at raw KV the model runs
+    at bf16, as B10 takes raw pages in bf16 alone, and the first generated
+    token of every request must agree, the whole sequences reported (bf16
+    products rounded in another order may part at a near tie later)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for dtype, bits, kv_bits in AUDIO_CHECKS:
+        plan = PrecisionPlan(model_bits=bits, kv_bits=kv_bits,
+                             model_storage="int" if bits else "fake")
+        cfg = configs.get_reduced(AUDIO, dtype=getattr(torch, dtype), precision=plan)
+        params = T.init_params(cfg, seed=0, device="cpu")
+        params = quantize_param_tree(params, bits=bits) if bits else params
+        res = {}
+        for where in (dev, "cpu"):
+            eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                              backend="cuda", device=where)
+            res[str(where)] = eng.run(make_trace(8, cfg.vocab_size, max_new=16,
+                                                 max_prompt=32, seed=0))
+        on_card, on_cpu = res[str(dev)], res["cpu"]
+        first = sum(int(on_card[r].tokens[on_card[r].prompt_len]
+                        == on_cpu[r].tokens[on_cpu[r].prompt_len]) for r in on_cpu)
+        same = sum(int(np.array_equal(on_card[r].tokens, on_cpu[r].tokens)) for r in on_cpu)
+        gated = same if dtype == "float32" else first
+        print(f"[check] reduced {AUDIO} {dtype} weight/KV bits {bits or 'raw'}/"
+              f"{kv_bits or 'raw'}: card kernels vs CPU plain path through the engine — "
+              f"first tokens equal {first}/8, whole sequences equal {same}/8 (gated: "
+              f"{'whole sequences' if dtype == 'float32' else 'first tokens'})", flush=True)
+        if gated != 8:
+            raise AssertionError(f"[check audio] {dtype} bits {bits}/{kv_bits}: first "
+                                 f"{first}/8, sequences {same}/8 equal")
+        out[f"{dtype}_{bits}_{kv_bits}"] = {"first_tokens_equal": first,
+                                            "sequences_equal": same}
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -5106,6 +5640,10 @@ def main():
     moe_qmm_rows = phase("kernel qmm moe", check_qmm_moe, dev, flush)
     moe_attn_rows = phase("kernel paged_decode_attn moe", check_paged_attn_moe, dev, flush)
     mixtral_qmm_rows = phase("kernel qmm mixtral", check_qmm_mixtral, dev, flush)
+    vlm_qmm_rows = phase("kernel qmm vlm", check_qmm_vlm, dev, flush)
+    audio_qmm_rows = phase("kernel qmm audio", check_qmm_audio, dev, flush)
+    audio_attn_rows = phase("kernel paged_decode_attn audio", check_paged_attn_audio, dev,
+                            flush)
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -5163,6 +5701,17 @@ def main():
     del window_blocks
     torch.cuda.empty_cache()
     mixtral_small = phase("check mixtral", agree_mixtral, dev)
+    # slice 12: every qmm launch of [serve-vlm] and [serve-audio] must be at
+    # a shape checked for it; [check cross] takes the int8 build's cross
+    # blocks and the vision stand-ins
+    vlm, cross_blocks, vision = phase("serve-vlm", serve_vlm, dev,
+                                      {r["key"] for r in vlm_qmm_rows})
+    cross = phase("check cross", check_cross, dev, cross_blocks, vision)
+    del cross_blocks, vision
+    torch.cuda.empty_cache()
+    vlm_small = phase("check vlm", agree_vlm, dev)
+    audio = phase("serve-audio", serve_audio, dev, {r["key"] for r in audio_qmm_rows})
+    audio_small = phase("check audio", agree_audio, dev)
 
     # threefry launches on the main paths: the phases' reads (tf_path), and
     # the runs whose counters are reset again before a later run of the
@@ -5355,14 +5904,30 @@ def main():
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
-    for r in moe_attn_rows:
-        bits = r.pop("kv_bits")
-        r.pop("path"), r.pop("layout")
-        r["launches"] = sum(run[0]["paged_decode_attn"] for run in moe.values()
-                            if run[2]["kv_bits"] == bits)
-        kernels.append({"name": r.pop("name"), "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
-                        "replaces": "src/repro/kernels/paged_attn.py:195", **r})
+    # qmm at slice 12's shapes: [serve-vlm]'s prefill and decode steps at
+    # 8/8 and 4/4, [serve-audio]'s two serve_engine calls, by (packed, M, K,
+    # N); B10 at granite-moe's and musicgen's layouts: [serve-moe]'s and
+    # [serve-audio]'s runs at the row's KV bits
+    vlm_path, audio_path = collections.Counter(), collections.Counter()
+    for run in vlm.values():
+        vlm_path.update({tuple(k[:-1]): k[-1] for k in run["qmm_shape_launches"]})
+    for run in audio.values():
+        audio_path.update(run[1])
+    for rows_, path_ in ((vlm_qmm_rows, vlm_path), (audio_qmm_rows, audio_path)):
+        for r in rows_:
+            r["launches"] = path_.get(r.pop("key"), 0)
+            kernels.append({"name": r.pop("name"), "route": "cuda",
+                            "source": "src/repro_torch/kernels/csrc/qmm.cu",
+                            "replaces": "src/repro/kernels/qmm.py:158", **r})
+    for rows_, runs_ in ((moe_attn_rows, moe), (audio_attn_rows, audio)):
+        for r in rows_:
+            bits = r.pop("kv_bits")
+            r.pop("path"), r.pop("layout")
+            r["launches"] = sum(run[0]["paged_decode_attn"] for run in runs_.values()
+                                if run[2]["kv_bits"] == bits)
+            kernels.append({"name": r.pop("name"), "route": "cuda",
+                            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+                            "replaces": "src/repro/kernels/paged_attn.py:195", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "core")
     extra_keys = ("matmul_ms", "plain_code_share", "exact_code_share", "before_ms",
@@ -5391,6 +5956,9 @@ def main():
               "serve_legacy_moe": legacy_moe, "moe_agreement": moe_small,
               "serve_mixtral": mixtral, "window_check": window,
               "mixtral_agreement": mixtral_small,
+              "serve_vlm": vlm, "cross_check": cross, "vlm_agreement": vlm_small,
+              "serve_audio": {k: v[2] for k, v in audio.items()},
+              "audio_agreement": audio_small,
               "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],
               "int32_ops_per_s": INT32_OPS, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

@@ -9,7 +9,11 @@ leaves on ``device`` (a bitplane QTensor's uint32 words arrive as the
 port's int32 words, bit for bit; its ``vec_dim`` rides in the scheme). bfloat16 arrays (``ml_dtypes``) arrive as torch
 bfloat16 exactly (through f32, which holds every bf16 value). Converting a
 JAX ``QTensor`` into that dict form is the caller's job — this package
-never imports JAX.
+never imports JAX. A vlm tree's ``blocks`` — self layers stacked (n_cross,
+per, …) under ``self``, cross blocks (n_cross, …) under ``cross`` —
+arrives as the port's ``layers`` (every leaf's two lead axes merged into
+one, QTensor codes, scales and level tables alike: block i, layer j is
+layer i · per + j) and ``cross``.
 
 ``key_from_numpy(k)`` takes a JAX PRNG key (``uint32[2]``, or a stack of
 them) as numpy and returns the port's key (:mod:`repro_torch.prng`: int64
@@ -38,7 +42,19 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _merge_lead(tree):
+    """Every array of a numpy tree with its first two axes merged."""
+    if isinstance(tree, dict):
+        return {k: v if k == "scheme" else _merge_lead(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
+
+
 def params_from_numpy(tree, device="cpu"):
+    if isinstance(tree, dict) and set(tree.get("blocks") or ()) == {"self", "cross"}:
+        tree = {**{k: v for k, v in tree.items() if k != "blocks"},
+                "layers": _merge_lead(tree["blocks"]["self"]),
+                "cross": tree["blocks"]["cross"]}
     if isinstance(tree, dict):
         if set(tree) in ({"codes", "scale", "scheme"},
                          {"codes", "scale", "scheme", "levels"}):

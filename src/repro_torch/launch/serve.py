@@ -80,6 +80,19 @@ encoded a layer at a time as it is drawn:
       --legacy --no-reduced --weight-bits 8 --kv-bits 8 --batch 2 \
       --prompt-len 8192 --gen 32
 
+llama-3.2-vision-11b (a cross-attention block over 4096 vision tokens
+after every 5 of its 40 layers) serves through the legacy loop alone, as
+in the reference, whose loop feeds it zero vision tokens (ROADMAP C25):
+its cross K/V are cached raw in the compute dtype whatever ``--kv-bits``.
+musicgen-medium (the audio family: the dense layer with a gelu MLP)
+serves through both:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b \
+      --device cpu --legacy --weight-bits 8 --kv-bits 8 --batch 2 \
+      --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
+      --device cpu --requests 4
+
 Multi-replica serving, prefix caching, chunked prefill and sampling wait
 for ROADMAP A3.
 """
@@ -145,17 +158,24 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     Returns (tokens (B, prompt+gen) numpy int32, steady-state tokens/s over
     the ``gen − 1`` timed steps; NaN when ``gen`` is 1).
 
-    A dense or moe model's ring cache, and each of a hybrid model's
-    shared caches, holds ``prompt_len + gen`` rows, as the reference's; a
-    sliding-window model's the last ``window`` prompt rows where the
-    prompt is longer than the window."""
+    A dense, moe, audio or vlm model's ring cache, and each of a hybrid
+    model's shared caches, holds ``prompt_len + gen`` rows, as the
+    reference's; a sliding-window model's the last ``window`` prompt rows
+    where the prompt is longer than the window. A vlm model attends zero
+    vision tokens, as the reference's loop feeds it, so its cross blocks
+    add exactly 0 (ROADMAP C25)."""
     dev = resolve_device(device)
     plan = _resolve_plan(plan, kv_bits, weight_bits, optimal_levels)
     cfg, params = _build(arch, reduced=reduced, plan=plan, seed=seed, device=dev)
     prompts = prng.randint(prng.fold_in(prng.PRNGKey(seed), 1), (batch, prompt_len),
                            0, cfg.vocab_size, device=dev)
-    logits, state = make_prefill_step(cfg, pad_to=prompt_len + gen)(
-        params, {"tokens": prompts})
+    inputs = {"tokens": prompts}
+    if cfg.family == "vlm":
+        # the reference's legacy loop feeds zero vision tokens: every cross
+        # k and v is then 0 and every cross block adds exactly 0 (ROADMAP C25)
+        inputs["vision"] = torch.zeros((batch, cfg.n_vis_tokens, cfg.d_model),
+                                       dtype=torch.float32, device=dev)
+    logits, state = make_prefill_step(cfg, pad_to=prompt_len + gen)(params, inputs)
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     step_fn = make_serve_step(cfg)
     step_fn(params, state, next_tok)                    # warm-up, thrown away

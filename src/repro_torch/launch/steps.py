@@ -9,11 +9,13 @@ from repro_torch.models import transformer as T
 
 
 def make_prefill_step(cfg: T.ModelConfig, pad_to: int = 0):
-    """``prefill_step(params, {"tokens": (B, S)}) → (last logits, DecodeState)``;
-    the dense and moe families' ring cache and the hybrid's shared caches
-    get ``max(S, pad_to)`` rows."""
+    """``prefill_step(params, {"tokens": (B, S)[, "vision": (B, n_vis, d)]})
+    → (last logits, DecodeState)``; the attention families' ring cache and
+    the hybrid's shared caches get ``max(S, pad_to)`` rows; a vlm model
+    attends ``batch["vision"]``, as the reference's step passes it."""
     def prefill_step(params, batch):
-        return T.prefill_state(params, batch["tokens"], cfg, pad_to=pad_to)
+        return T.prefill_state(params, batch["tokens"], cfg,
+                               vision_tokens=batch.get("vision"), pad_to=pad_to)
     return prefill_step
 
 

@@ -1,16 +1,15 @@
 """Attention (port of ``repro.models.attention``): GQA/MQA causal prefill
 attention over query blocks, optionally within a sliding window (q, k and
-v may carry a bias), the single-token decode projections, the masked
-one-shot decode softmax of the ``ref`` backend, and the ring-buffer KV
-cache of the legacy serve loop (``KVCache``, :func:`init_kv_cache`,
-:func:`update_kv_cache`, :func:`prefill_cache_from_kv`,
-:func:`attention_decode_step`), whose rows are quantized as the paged
-pool's (``serve.pages.quant_rows``). With a window W the cache keeps the
-prompt's last W rows and decode writes at ``length % rows``, as the
-reference's; that ring holds the window only for a prompt longer than W
-and a multiple of it (ROADMAP C24).
-
-Cross-attention waits for ROADMAP A6.
+v may carry a bias), cross attention of a prompt over other tokens (the
+vlm family's vision tokens: no causal mask, no RoPE), the single-token
+decode projections, the masked one-shot decode softmax of the ``ref``
+backend, and the ring-buffer KV cache of the legacy serve loop
+(``KVCache``, :func:`init_kv_cache`, :func:`update_kv_cache`,
+:func:`prefill_cache_from_kv`, :func:`attention_decode_step`), whose rows
+are quantized as the paged pool's (``serve.pages.quant_rows``). With a
+window W the cache keeps the prompt's last W rows and decode writes at
+``length % rows``, as the reference's; that ring holds the window only for
+a prompt longer than W and a multiple of it (ROADMAP C24).
 """
 from __future__ import annotations
 
@@ -54,31 +53,40 @@ class AttnSpec:
 
 def _attend_block(q, k, v, scale, mask):
     """Grouped-query attention of one query block without repeating KV.
-    q: (B, Cq, H, D); k/v: (B, Skv, G, D); mask (Cq, Skv) or (B, Cq, Skv)."""
+    q: (B, Cq, H, D); k/v: (B, Skv, G, D); mask (Cq, Skv) or (B, Cq, Skv),
+    or None where every query sees every key (cross attention: the
+    reference's all-true mask, which changes no score)."""
     b, cq, h, d = q.shape
     g = k.shape[2]
     r = h // g
     qg = q.reshape(b, cq, g, r, d)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
-    mask_b = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
-    scores = torch.where(mask_b, scores, torch.full_like(scores, NEG_INF))
+    if mask is not None:
+        mask_b = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+        scores = torch.where(mask_b, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd",
                        probs.to(v.dtype).to(torch.float32), v.to(torch.float32))
     return out.reshape(b, cq, h, d).to(q.dtype)
 
 
-def chunked_attention(q, k, v, spec: AttnSpec) -> torch.Tensor:
+def chunked_attention(q, k, v, spec: AttnSpec, *, causal: bool = True) -> torch.Tensor:
     """Causal attention over query blocks of ``spec.q_chunk`` rows.
     q: (B, S, H, D); k/v: (B, S, Hkv, D), post-RoPE. Returns (B, S, H, D).
 
     With a window W < S each block attends over the reference's span of
     ``min(W + q_chunk, S)`` keys, starting at ``clip(start + q_chunk −
     span, 0, S − span)``, masked to ``q − k < W``: O(S·W) compute and
-    memory, never S × S scores."""
+    memory, never S × S scores. ``causal=False`` (cross attention; k/v
+    (B, Skv, Hkv, D) of any Skv, no window) attends each block over every
+    key unmasked: (Cq, Skv) scores a block, never (S, Skv)."""
     s = q.shape[1]
     cq = min(spec.q_chunk, s)
+    if not causal:
+        outs = [_attend_block(q[:, i:i + cq], k, v, spec.scale, None)
+                for i in range(0, s, cq)]
+        return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     w = spec.window
     span = min(w + cq, s) if 0 < w < s else s
     outs = []
@@ -117,17 +125,24 @@ def decode_attention(q, k_cache, v_cache, spec: AttnSpec, *, kv_len) -> torch.Te
 
 def attention_block(p: Params, x: torch.Tensor, spec: AttnSpec, *,
                     positions: torch.Tensor | None = None,
+                    kv_tokens: torch.Tensor | None = None,
                     return_kv: bool = False):
-    """Causal self-attention of a prompt. ``return_kv=True`` also returns
-    the post-RoPE K/V — exactly what the decode cache stores."""
+    """Causal self-attention of a prompt, or cross attention when
+    ``kv_tokens`` (B, Skv, d) is given: q from ``x``, k and v from
+    ``kv_tokens``, no causal mask and no RoPE on q or k. ``return_kv=True``
+    also returns the K/V (post-RoPE for self attention) — exactly what the
+    decode cache stores."""
     b, s, _ = x.shape
+    src = x if kv_tokens is None else kv_tokens
+    sk = src.shape[1]
     q = dense(p["q"], x).reshape(b, s, spec.n_heads, spec.head_dim)
-    k = dense(p["k"], x).reshape(b, s, spec.n_kv_heads, spec.head_dim)
-    v = dense(p["v"], x).reshape(b, s, spec.n_kv_heads, spec.head_dim)
-    pos = positions if positions is not None else torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, spec.rope_theta)
-    k = apply_rope(k, pos, spec.rope_theta)
-    out = chunked_attention(q, k, v, spec)
+    k = dense(p["k"], src).reshape(b, sk, spec.n_kv_heads, spec.head_dim)
+    v = dense(p["v"], src).reshape(b, sk, spec.n_kv_heads, spec.head_dim)
+    if kv_tokens is None:
+        pos = positions if positions is not None else torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, spec.rope_theta)
+        k = apply_rope(k, pos, spec.rope_theta)
+    out = chunked_attention(q, k, v, spec, causal=kv_tokens is None)
     y = dense(p["o"], out.reshape(b, s, spec.n_heads * spec.head_dim))
     if return_kv:
         return y, (k, v)

@@ -1,20 +1,31 @@
-"""Model assembly for the dense, moe, ssm and hybrid families (port of
-``repro.models.transformer``): ``ModelConfig``, ``init_params``, the
-training ``forward`` and ``loss_fn``, ``prefill`` (the paged engine's: raw
-K/V out), the single-token decode block of the dense and moe families, and
-the legacy serve loop's ``DecodeState``, ``prefill_state``,
-``init_decode_state`` and ``decode_step``: the dense and moe families'
-ring-buffer KV cache, the ssm family's O(1) recurrent (conv, ssm) cache,
-and the hybrid's both — Mamba2 layers with one shared attention block
-after every ``shared_attn_every`` of them, each application of the block
-on a ring cache of its own. The moe family is the dense layer with its MLP
-replaced by the MoE block (``models/moe``).
+"""Model assembly for every family of the reference — dense, moe, ssm,
+hybrid, vlm and audio (port of ``repro.models.transformer``):
+``ModelConfig``, ``init_params``, the training ``forward`` and
+``loss_fn``, ``prefill`` (the paged engine's: raw K/V out), the
+single-token decode block of the attention families, and the legacy serve
+loop's ``DecodeState``, ``prefill_state``, ``init_decode_state`` and
+``decode_step``: the dense, moe, audio and vlm families' ring-buffer KV
+cache, the ssm family's O(1) recurrent (conv, ssm) cache, and the hybrid's
+both — Mamba2 layers with one shared attention block after every
+``shared_attn_every`` of them, each application of the block on a ring
+cache of its own. The moe family is the dense layer with its MLP replaced
+by the MoE block (``models/moe``); the audio family is the dense layer
+(musicgen-medium's gelu MLP); the vlm family is the dense stack with a
+cross-attention block (``ln1`` and ``attn``, no MLP) over the vision
+tokens after every ``cross_attn_every`` layers, whose K/V over the vision
+tokens are cached raw in ``cfg.dtype`` (``DecodeState.cross``) whatever
+``kv_bits``.
 
 ``lax.scan`` over stacked layers becomes a Python loop over per-layer views
 of the same stacked tensors; the training forward rematerializes each layer
 in the backward (``cfg.remat``, ``torch.utils.checkpoint``) as the
-reference's ``jax.checkpoint`` does. VLM and audio families, and a window
-on the hybrid, wait for ROADMAP A6.
+reference's ``jax.checkpoint`` does. The reference stacks a vlm model's
+self layers (n_cross, per, …) under ``blocks.self`` and its cross blocks
+under ``blocks.cross``; the port keeps the self layers as one (L, …) stack
+in ``params["layers"]`` (block i, layer j is layer i · per + j) and the
+cross blocks as one (n_cross, …) stack in ``params["cross"]``
+(``interop.params_from_numpy`` reshapes a reference tree). A window on the
+hybrid waits for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -30,14 +41,18 @@ from repro_torch.quant import PrecisionPlan
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (Params, embed, init_embedding, init_mlp, init_rmsnorm,
+from .layers import (Params, dense, embed, init_embedding, init_mlp, init_rmsnorm,
                      layer_view, mlp, rmsnorm, stack_layers, unembed, unstack_layers)
+
+# the families whose every layer is a pre-norm attention block (their
+# legacy loop's ring KV cache, ``init_params``' layer stack)
+ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # 'dense', 'moe', 'ssm' or 'hybrid' in the port
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -59,6 +74,10 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssd_chunk: int = 256
     shared_attn_every: int = 0  # hybrid: the shared attention block after every k layers
+    # vlm: a cross-attention block over n_vis_tokens vision tokens after
+    # every cross_attn_every layers (the vision tower is a stub)
+    cross_attn_every: int = 0
+    n_vis_tokens: int = 0
     dtype: Any = torch.bfloat16
     logit_chunk: int = 512
     tie_embeddings: bool = True
@@ -88,15 +107,15 @@ class ModelConfig:
 
 
 def _check_family(cfg: ModelConfig):
-    """The ported families: dense and moe (tied embeddings; a sliding
-    ``window`` or none; a dense model's q, k and v may carry a bias), ssm
-    (tied embeddings) and hybrid (tied embeddings, no window). An ssm
-    config with ``kv_bits`` raises: it has no KV cache to quantize (the
-    reference ignores the request; ROADMAP C18). A hybrid config whose
-    ``shared_attn_every`` is not a positive divisor of ``n_layers`` raises
-    (the reference dies in a reshape or a division by zero), and so does an
-    moe config that routes to fewer than one expert or to more experts
-    than it has."""
+    """The ported families, each with tied embeddings: dense, audio, vlm and
+    moe (a sliding ``window`` or none; q, k and v may carry a bias), ssm
+    and hybrid (no window). An ssm config with ``kv_bits`` raises: it has
+    no KV cache to quantize (the reference ignores the request; ROADMAP
+    C18). A hybrid config whose ``shared_attn_every``, or a vlm config
+    whose ``cross_attn_every``, is not a positive divisor of ``n_layers``
+    raises (the reference dies in a reshape or a division by zero), and so
+    does an moe config that routes to fewer than one expert or to more
+    experts than it has."""
     if cfg.family == "ssm" and cfg.tie_embeddings:
         if cfg.precision.kv_bits:
             raise ValueError(
@@ -118,11 +137,18 @@ def _check_family(cfg: ModelConfig):
                 f"{cfg.name}: an moe model routes each token to top_k >= 1 of its "
                 f"n_experts experts; got n_experts={cfg.n_experts}, top_k={cfg.top_k}")
         return
-    if cfg.family != "dense" or not cfg.tie_embeddings:
+    if cfg.family == "vlm" and cfg.tie_embeddings:
+        k = cfg.cross_attn_every
+        if k <= 0 or cfg.n_layers % k:
+            raise ValueError(
+                f"{cfg.name}: a vlm model applies a cross-attention block after "
+                f"every cross_attn_every layers, which must divide "
+                f"n_layers={cfg.n_layers}; got cross_attn_every={k}")
+        return
+    if cfg.family not in ("dense", "audio") or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and moe families with tied embeddings, "
-            "the ssm family and the hybrid family without a window are ported "
-            "(ROADMAP A6)")
+            f"{cfg.name}: only the families with tied embeddings, and the "
+            "hybrid family without a window, are ported (ROADMAP A6)")
 
 
 def _shared_after(cfg: ModelConfig, i: int) -> bool:
@@ -130,18 +156,31 @@ def _shared_after(cfg: ModelConfig, i: int) -> bool:
     return cfg.family == "hybrid" and (i + 1) % cfg.shared_attn_every == 0
 
 
-def _init_attn_block(gen, cfg: ModelConfig, weight=stack_layers, **kw) -> Params:
+def _cross_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether a vlm model's cross-attention block runs after layer ``i``."""
+    return cfg.family == "vlm" and (i + 1) % cfg.cross_attn_every == 0
+
+
+def _n_cross(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.cross_attn_every
+
+
+def _init_attn_block(gen, cfg: ModelConfig, weight=stack_layers, cross: bool = False,
+                     **kw) -> Params:
     """A pre-norm attention + MLP block (``ln1``, ``attn``, ``ln2``,
     ``mlp``): a dense layer, stacked with ``lead=(L,)``, or the hybrid's
     shared block; an moe layer has the MoE block ``moe`` in place of
-    ``mlp``."""
+    ``mlp``; a vlm model's ``cross`` block has ``ln1`` and ``attn``
+    only."""
     blk = {
         "ln1": init_rmsnorm(cfg.d_model, **kw),
         "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.head_dim, qkv_bias=cfg.qkv_bias, weight=weight,
                                     **kw),
-        "ln2": init_rmsnorm(cfg.d_model, **kw),
     }
+    if cross:
+        return blk
+    blk["ln2"] = init_rmsnorm(cfg.d_model, **kw)
     if cfg.family == "moe":
         blk["moe"] = moe_mod.init_moe(gen, cfg.moe_spec, weight=weight, **kw)
     else:
@@ -155,7 +194,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     explicit ``torch.Generator`` on ``device`` (default ``cuda``; the numbers
     differ from ``jax.random`` — bridge JAX params with ``interop`` to
     compare). Layer weights are stacked (L, …); the hybrid's shared block
-    ``shared_attn`` is one unstacked block. Each matmul weight is drawn a
+    ``shared_attn`` is one unstacked block; a vlm model's cross blocks are
+    stacked (n_cross, …) in ``cross``. Each matmul weight is drawn a
     layer at a time and stored by ``weight(layers, lead)`` — by default
     stacked in ``cfg.dtype``; ``precision.qat.quantizing_store`` encodes
     each layer as it is drawn, so the compute-dtype tree never exists
@@ -173,8 +213,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
                                 device=dev),
         "final_norm": init_rmsnorm(cfg.d_model, dtype=dt, device=dev),
     }
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         params["layers"] = _init_attn_block(gen, cfg, weight, **kw)
+        if cfg.family == "vlm":
+            params["cross"] = _init_attn_block(gen, cfg, weight, cross=True,
+                                               lead=(_n_cross(cfg),), dtype=dt, device=dev)
         return params
     params["layers"] = {"norm": init_rmsnorm(cfg.d_model, **kw),
                         "mamba": ssm_mod.init_mamba2(gen, cfg.ssm_spec, weight=weight,
@@ -187,6 +230,33 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
 def layer_views(params: Params, cfg: ModelConfig) -> list[Params]:
     """Per-layer views of the stacked layer params (build once, reuse)."""
     return [layer_view(params["layers"], i) for i in range(cfg.n_layers)]
+
+
+def cross_views(params: Params, cfg: ModelConfig) -> list[Params]:
+    """Per-block views of a vlm model's stacked cross blocks (none for the
+    other families)."""
+    if cfg.family != "vlm":
+        return []
+    return [layer_view(params["cross"], i) for i in range(_n_cross(cfg))]
+
+
+def _vision(cfg: ModelConfig, vision_tokens) -> torch.Tensor | None:
+    """A vlm model's vision tokens (B, n_vis, d) in ``cfg.dtype``, as the
+    reference casts them; None for the other families."""
+    if cfg.family != "vlm":
+        return None
+    if vision_tokens is None:
+        raise ValueError(f"{cfg.name}: a vlm model attends its vision tokens: pass "
+                         "vision_tokens (B, n_vis_tokens, d_model)")
+    return vision_tokens.to(cfg.dtype)
+
+
+def _cross_block_kv(cfg: ModelConfig, blk: Params, x: torch.Tensor, vis: torch.Tensor):
+    """A prompt through a vlm cross block (pre-norm cross attention over the
+    vision tokens, no MLP): (out, K, V) of the vision tokens."""
+    a_out, (k, v) = attn.attention_block(blk["attn"], rmsnorm(blk["ln1"], x),
+                                         cfg.attn_spec, kv_tokens=vis, return_kv=True)
+    return x + a_out, k, v
 
 
 def _readout(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -227,7 +297,8 @@ def _layer_fwd(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor
     return _attn_block_kv(cfg, layer, x)[0]
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            vision_tokens: torch.Tensor | None = None) -> torch.Tensor:
     """tokens (B, S) → final-normed hidden states (B, S, d), differentiable
     (weights may be dense, QTensor or ShipWeight leaves). Each layer is
     recomputed in the backward when ``cfg.remat`` (the saved state is one
@@ -235,8 +306,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     kernel has no backward, so on the card its gradient raises (ROADMAP
     A6, ssm training); the plain scan on the CPU is differentiable. The
     hybrid runs its shared attention block after every
-    ``shared_attn_every`` Mamba2 layers, not rematerialized, as the
-    reference's segment scan does."""
+    ``shared_attn_every`` Mamba2 layers, and a vlm model a cross block
+    over ``vision_tokens`` (B, n_vis, d) after every ``cross_attn_every``
+    layers, neither rematerialized."""
     _check_family(cfg)
     if cfg.precision.act_bits:
         raise NotImplementedError(
@@ -244,6 +316,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
             "(a plan with it trains as one without it); the port raises "
             "rather than ignore a requested channel (ROADMAP C9; the "
             "activation channel itself is precision.act_quant)")
+    vis = _vision(cfg, vision_tokens)
+    cross = unstack_layers(params["cross"], _n_cross(cfg)) if vis is not None else []
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
     for i, layer in enumerate(unstack_layers(params["layers"], cfg.n_layers)):
         if cfg.remat:
@@ -252,6 +326,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
             x = _layer_fwd(cfg, layer, x)
         if _shared_after(cfg, i):
             x = _attn_block_kv(cfg, params["shared_attn"], x)[0]
+        if _cross_after(cfg, i):
+            x = _cross_block_kv(cfg, cross[i // cfg.cross_attn_every], x, vis)[0]
     return rmsnorm(params["final_norm"], x)
 
 
@@ -279,7 +355,8 @@ def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            last_pos: int | None = None, layers: list | None = None):
+            last_pos: int | None = None, layers: list | None = None,
+            vision_tokens: torch.Tensor | None = None):
     """Process a prompt (B, S): returns (logits (B, V) at ``last_pos``
     (default the last position), (k, v)) with the raw post-RoPE K/V of every
     layer stacked as (L, B, S, Hkv, D) — what the paged pool quantizes.
@@ -293,42 +370,60 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     decode continues from it; the hybrid's ``shared`` holds one ring KV
     cache of S rows per application of its shared block, stacked, at
     ``cfg.precision.kv_bits`` (:func:`prefill_state` reserves rows for
-    decode to append to)."""
+    decode to append to). So does the vlm family, whose caches the paged
+    pool does not take either: :func:`prefill_state`'s of S rows."""
     _check_family(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, tokens, cfg, last_pos, layers)
+    if cfg.family == "vlm":
+        return prefill_state(params, tokens, cfg, vision_tokens=vision_tokens,
+                             last_pos=last_pos, layers=layers)
     if cfg.precision.kv_bits:
         raise NotImplementedError(
             "prefill fills raw K/V only (kv_bits=0); the paged pool "
             "quantizes them (the ring cache's prefill is prefill_state)")
-    logits, ks, vs = _prefill_dense(params, tokens, cfg, last_pos, layers)
+    logits, ks, vs, _ = _prefill_dense(params, tokens, cfg, last_pos, layers)
     return logits, (torch.stack(ks), torch.stack(vs))
 
 
-def _prefill_dense(params, tokens, cfg, last_pos, layers):
-    """The dense prompt forward: (logits at ``last_pos``, every layer's
-    post-RoPE K, every layer's V)."""
+def _prefill_dense(params, tokens, cfg, last_pos, layers, vision_tokens=None):
+    """The attention stack's prompt forward: (logits at ``last_pos``, every
+    layer's post-RoPE K, every layer's V, a vlm model's cross caches
+    ``{"k", "v"}`` of (n_cross, B, n_vis, Hkv, D) in ``cfg.dtype``, else
+    None). A cross block's K/V come from its one projection of the vision
+    tokens (the reference projects them a second time, to the same
+    values)."""
     layers = layers if layers is not None else layer_views(params, cfg)
+    vis = _vision(cfg, vision_tokens)
+    cross = cross_views(params, cfg)
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
-    ks, vs = [], []
-    for layer in layers:
+    ks, vs, cks, cvs = [], [], [], []
+    for i, layer in enumerate(layers):
         x, k, v = _attn_block_kv(cfg, layer, x)
         ks.append(k)
         vs.append(v)
+        if _cross_after(cfg, i):
+            x, ck, cv = _cross_block_kv(cfg, cross[len(cks)], x, vis)
+            cks.append(ck)
+            cvs.append(cv)
     pos = x.shape[1] - 1 if last_pos is None else int(last_pos)
-    return final_logits(params, cfg, x[:, pos:pos + 1])[:, 0], ks, vs
+    kv = {"k": torch.stack(cks), "v": torch.stack(cvs)} if cks else None
+    return final_logits(params, cfg, x[:, pos:pos + 1])[:, 0], ks, vs, kv
 
 
 def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                  pad_to: int = 0, last_pos: int | None = None,
-                  layers: list | None = None):
+                  vision_tokens: torch.Tensor | None = None, pad_to: int = 0,
+                  last_pos: int | None = None, layers: list | None = None):
     """Prefill a prompt (B, S) for the legacy serve loop: (logits (B, V) at
     ``last_pos``, :class:`DecodeState`) as the reference's ``prefill``
     returns them. The dense and moe families' state holds one ring-buffer
     :class:`~repro_torch.models.attention.KVCache` of stacked (L, …)
     planes, sized ``max(S, pad_to)`` rows — the last ``cfg.window`` rows
     where a window is shorter than S — and quantized at
-    ``cfg.precision.kv_bits``; the ssm family's is :func:`prefill`'s
+    ``cfg.precision.kv_bits``; the audio family's is the dense one; a vlm
+    model's adds ``cross``, the K/V of its cross blocks over
+    ``vision_tokens`` (B, n_vis, d), raw in ``cfg.dtype`` whatever
+    ``kv_bits``, as the reference's; the ssm family's is :func:`prefill`'s
     (``pad_to`` unused); the hybrid's is :func:`prefill`'s with its shared
     caches sized ``max(S, pad_to)`` rows. The legacy loop writes a decoded
     row at ``min(length, rows − 1)``: without ``pad_to`` > S the first step
@@ -337,11 +432,12 @@ def prefill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     _check_family(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, tokens, cfg, last_pos, layers, pad_to)
-    logits, ks, vs = _prefill_dense(params, tokens, cfg, last_pos, layers)
+    logits, ks, vs, cross = _prefill_dense(params, tokens, cfg, last_pos, layers,
+                                           vision_tokens)
     caches = [attn.prefill_cache_from_kv(k, v, window=cfg.window,
                                          kv_bits=cfg.precision.kv_bits, pad_to=pad_to)
               for k, v in zip(ks, vs)]
-    return logits, DecodeState(_stack_kv(caches), step=tokens.shape[1])
+    return logits, DecodeState(_stack_kv(caches), cross=cross, step=tokens.shape[1])
 
 
 def decode_layer_block(cfg: ModelConfig, layer: Params, h: torch.Tensor,
@@ -359,9 +455,12 @@ def decode_layer_block(cfg: ModelConfig, layer: Params, h: torch.Tensor,
 
 class DecodeState(typing.NamedTuple):
     """Per-layer caches + step counter. ``layers`` is one cache of stacked
-    (L, …) tensors: a ``KVCache`` (dense) or a ``MambaCache`` (ssm,
-    hybrid); ``shared`` the hybrid's ``KVCache`` of stacked (L / k, …)
-    planes, one per application of its shared block."""
+    (L, …) tensors: a ``KVCache`` (the attention families) or a
+    ``MambaCache`` (ssm, hybrid); ``shared`` the hybrid's ``KVCache`` of
+    stacked (L / k, …) planes, one per application of its shared block;
+    ``cross`` a vlm model's ``{"k", "v"}``, each (n_cross, B, n_vis, Hkv,
+    D) in ``cfg.dtype``: its cross blocks' K/V over the vision tokens,
+    read and never written by decode."""
 
     layers: Any
     shared: Any = None
@@ -407,12 +506,16 @@ def _prefill_ssm(params, tokens, cfg, last_pos, layers, pad_to=0):
                                step=tokens.shape[1])
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
+def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *, params=None,
+                      vision_tokens: torch.Tensor | None = None,
                       device=None) -> DecodeState:
     """Zero caches for ``batch`` sequences on ``device`` (default ``cuda``).
-    The dense and moe families' is an empty ring-buffer KV cache of ``smax``
+    The attention families' is an empty ring-buffer KV cache of ``smax``
     rows a layer (``min(window, smax)`` with a sliding window) at
-    ``cfg.precision.kv_bits``. The ssm family's cache is O(1) in
+    ``cfg.precision.kv_bits``; a vlm model's ``cross`` holds each cross
+    block's K/V projection of ``vision_tokens`` (B, n_vis, d) under
+    ``params`` when both are given, else zeros of ``n_vis_tokens`` rows, in
+    ``cfg.dtype``. The ssm family's cache is O(1) in
     the sequence (``smax`` is unused); its conv cache is bf16 whatever the
     compute dtype, as in the reference. The hybrid has the ssm family's
     caches and one ring KV cache of ``smax`` rows per application of its
@@ -428,9 +531,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
                                  device=dev)
         return _stack_kv([one] * n)
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         rows = min(cfg.window, smax) if cfg.window else smax
-        return DecodeState(kv_caches(cfg.n_layers, rows), step=0)
+        cross = None
+        if cfg.family == "vlm":
+            cross = _init_cross(cfg, batch, params, vision_tokens, dev)
+        return DecodeState(kv_caches(cfg.n_layers, rows), cross=cross, step=0)
     one = ssm_mod.init_mamba_cache(batch, cfg.ssm_spec, device=dev)
     shared = (kv_caches(cfg.n_layers // cfg.shared_attn_every)
               if cfg.family == "hybrid" else None)
@@ -440,15 +546,44 @@ def init_decode_state(cfg: ModelConfig, batch: int, smax: int, *,
         step=0)
 
 
+def _init_cross(cfg: ModelConfig, batch: int, params, vision_tokens, dev) -> dict:
+    """A vlm model's cross caches for :func:`init_decode_state`."""
+    shape = (_n_cross(cfg), batch, cfg.n_vis_tokens, cfg.n_kv_heads, cfg.head_dim)
+    if params is None or vision_tokens is None:
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    vis = vision_tokens.to(device=dev, dtype=cfg.dtype)
+    rows = (batch, vis.shape[1], cfg.n_kv_heads, cfg.head_dim)
+    ks, vs = [], []
+    for blk in cross_views(params, cfg):
+        ks.append(dense(blk["attn"]["k"], vis).reshape(rows))
+        vs.append(dense(blk["attn"]["v"], vis).reshape(rows))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _cross_decode(cfg: ModelConfig, blk: Params, x: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor) -> torch.Tensor:
+    """One token (B, 1, d) through a vlm cross block on its cached K/V
+    (B, n_vis, Hkv, D): every row valid (``kv_len = n_vis``), no cache
+    update."""
+    b, spec = x.shape[0], cfg.attn_spec
+    q = dense(blk["attn"]["q"], rmsnorm(blk["ln1"], x)).reshape(
+        b, 1, cfg.n_heads, cfg.head_dim)
+    out = attn.decode_attention(q, ck, cv, spec, kv_len=ck.shape[1])
+    return x + dense(blk["attn"]["o"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+
+
 def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
                 cfg: ModelConfig):
     """One serve step of the legacy loop: tokens (B, 1) → (logits (B, 1, V)
     f32 with the vocab pad masked, new state). ``state`` is only read: the
     new state's tensors are new, so a discarded step leaves it as it was.
-    The dense and moe families append each layer's K/V row to its ring
-    cache (at ``length % rows`` with a sliding window) and attend in plain
-    PyTorch (``attention_decode_step``), as the reference does; the hybrid does so in its shared block, on the cache
-    of that application."""
+    The attention families append each layer's K/V row to its ring cache
+    (at ``length % rows`` with a sliding window) and attend in plain
+    PyTorch (``attention_decode_step``), as the reference does; a vlm
+    model's cross blocks attend their cached K/V (``state.cross``, passed
+    on as it is); the hybrid attends in its shared block, on the cache of
+    that application."""
     _check_family(cfg)
     x = embed(params["embed"], tokens, cfg.dtype).to(cfg.dtype)
 
@@ -463,11 +598,16 @@ def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
         return decode_layer_block(cfg, blk, x, attend)
 
     caches = []
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
+        cross = cross_views(params, cfg)
         for i, layer in enumerate(layer_views(params, cfg)):
             x = attend_block(layer, x, state.layers, i, caches)
-        return final_logits(params, cfg, x), DecodeState(_stack_kv(caches),
-                                                         step=state.step + 1)
+            if _cross_after(cfg, i):
+                j = i // cfg.cross_attn_every
+                x = _cross_decode(cfg, cross[j], x, state.cross["k"][j],
+                                  state.cross["v"][j])
+        return final_logits(params, cfg, x), DecodeState(
+            _stack_kv(caches), cross=state.cross, step=state.step + 1)
     shared = []
     for i, layer in enumerate(layer_views(params, cfg)):
         cache = ssm_mod.MambaCache(state.layers.conv[i], state.layers.ssm[i])

@@ -69,11 +69,10 @@ from repro_torch.models.layers import apply_rope, dense, embed
 from repro_torch.quant import PrecisionPlan, QTensor, tree_nbytes
 from repro_torch.serve import pages as pg
 
-SUPPORTED_FAMILIES = ("dense", "moe")
-# families whose caches the reference's engine does not page either (it
-# raises the same ValueError); the ssm and hybrid families serve through the
-# legacy loop, ``launch.serve.serve``
-UNPAGED_FAMILIES = ("ssm", "hybrid", "vlm")
+# the other families' caches the reference's engine does not page either
+# (it raises the same ValueError); they serve through the legacy loop,
+# ``launch.serve.serve``
+SUPPORTED_FAMILIES = ("dense", "moe", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,14 +117,10 @@ class ServeEngine:
                  prefix_cache: bool = False, chunk_pages: int | None = None,
                  spec_decode: int = 0, draft_bits: int | None = None,
                  fault_injector=None):
-        if cfg.family in UNPAGED_FAMILIES:
+        if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
                 f"ServeEngine supports {SUPPORTED_FAMILIES} families, "
                 f"got {cfg.family!r} (SSM/hybrid/VLM caches are not paged yet)")
-        if cfg.family not in SUPPORTED_FAMILIES:
-            raise NotImplementedError(
-                f"ServeEngine serves {SUPPORTED_FAMILIES} in the port, got "
-                f"{cfg.family!r} (ROADMAP A6)")
         if cfg.window:
             raise ValueError("sliding-window models are not paged yet")
         if reserve == "none":

@@ -34,6 +34,11 @@ def make_grads_fn(cfg: T.ModelConfig, model_channel: Channel, accum_steps: int =
             f"{cfg.name}: training an moe model is not ported (ROADMAP A6(e): the "
             "experts' bf16 weight gradient, the load-balance term, stacked "
             "ShipWeight and qmm_t per expert); the port serves it")
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: training a vlm model is not ported (ROADMAP A6(f): the "
+            "batch's vision tokens through the channels and the loss); the port "
+            "serves it")
 
     def grads_of(params, batch, kq):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)

@@ -109,6 +109,16 @@ MOE_QMM_SHAPES = [(m, k, n) for m in (4, 64, 1024, 4096)
 # and the prefill's M 16384, and k/v (4096, 1024) at the 8193 f32 rows of
 # chip_smoke.py's [check window]
 MIXTRAL_QMM_SHAPES = [(2, 4096, 8), (16384, 4096, 8), (8193, 4096, 1024)]
+# slice 12's llama-3.2-vision-11b: q/o, k/v, gate/up and down at decode M 4
+# and the prefill's M 4096, the cross blocks' k/v of 4 × 4096 vision
+# tokens at M 16384, and chip_smoke.py's [check cross] at f32 (q/o at
+# M 256); musicgen-medium's three (K, N) at decode M 4 and the trace's
+# prompt buckets (48–112)
+VLM_QMM_SHAPES = [(m, k, n) for m in (4, 4096)
+                  for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))] + \
+    [(16384, 4096, 1024), (256, 4096, 4096)]
+AUDIO_QMM_SHAPES = [(m, k, n) for m in (4, 48, 112)
+                    for k, n in ((1536, 1536), (1536, 6144), (6144, 1536))]
 
 
 @pytest.fixture
@@ -175,6 +185,15 @@ def test_qmm_kernel_matches_plain_at_moe_shapes(cuda, m, k, n, bits, packed, xdt
 @pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 def test_qmm_kernel_matches_plain_at_mixtral_shapes(cuda, m, k, n, bits, packed, xdtype):
+    _check_qmm(cuda, m, k, n, bits, packed, xdtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", VLM_QMM_SHAPES + AUDIO_QMM_SHAPES)
+@pytest.mark.parametrize("bits,packed", [(8, False), (4, True)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_qmm_kernel_matches_plain_at_vlm_and_audio_shapes(cuda, m, k, n, bits, packed,
+                                                          xdtype):
     _check_qmm(cuda, m, k, n, bits, packed, xdtype)
 
 
@@ -307,10 +326,10 @@ def test_paged_attn_kernel_matches_plain(cuda, kv_bits, g):
 
 
 # (H, Hkv, D): gemma-2b's MQA, gemma-7b's MHA, granite-3-8b's GQA, the
-# small pools above, qwen2.5-14b's GQA (R = 5 query heads a kv head) and
-# granite-moe-3b-a800m's (D 64, R 3)
+# small pools above, qwen2.5-14b's GQA (R = 5 query heads a kv head),
+# granite-moe-3b-a800m's (D 64, R 3) and musicgen-medium's MHA (D 64, R 1)
 ATTN_LAYOUTS = [(8, 1, 256), (16, 16, 256), (32, 8, 128), (4, 1, 16), (4, 2, 16),
-                (40, 8, 128), (24, 8, 64)]
+                (40, 8, 128), (24, 8, 64), (24, 24, 64)]
 
 
 def _attn_lens(page):

@@ -353,15 +353,19 @@ def test_more_than_one_group_raises():
     (dict(family="moe"), ValueError, "n_experts"),
     (dict(family="hybrid", shared_attn_every=1, window=8), NotImplementedError,
      "ROADMAP A6"),
-    (dict(family="vlm"), NotImplementedError, "ROADMAP A6"),
-    (dict(family="audio"), NotImplementedError, "ROADMAP A6")],
+    (dict(family="vlm"), ValueError, "cross_attn_every"),
+    (dict(tie_embeddings=False), NotImplementedError, "ROADMAP A6")],
     ids=["over0", "over1", "over2", "over3"])
 def test_unported_families_name_a6(over, exc, match):
-    """A window on the hybrid, vlm and audio wait for ROADMAP A6; the moe
-    family is ported (slice 10), and the reduced gemma-2b as an moe model
-    has no experts (``n_experts=0``), which raises a ValueError. Windows on
-    the dense and moe families are ported (slice 11,
-    ``test_torch_window.py``)."""
+    """A window on the hybrid and untied embeddings wait for ROADMAP A6;
+    the moe family is ported (slice 10), and the reduced gemma-2b as an
+    moe model has no experts (``n_experts=0``), which raises a
+    ValueError; the vlm family is ported (slice 12), and the reduced
+    gemma-2b as a vlm model has no cross-attention cadence
+    (``cross_attn_every=0``), which raises a ValueError. Windows on the
+    dense and moe families are ported (slice 11,
+    ``test_torch_window.py``), the audio family too (slice 12,
+    ``test_torch_audio.py``)."""
     cfg = tconfigs.get_reduced("gemma-2b", **over)
     with pytest.raises(exc, match=match):
         TT.init_params(cfg, device="cpu")
@@ -378,13 +382,15 @@ def test_hybrid_without_shared_attn_every_raises():
 
 def test_dense_legacy_paths_name_a6():
     """What the legacy loop still lacks names A6: a window on the hybrid's
-    shared ring caches and the architectures not ported yet (the dense and
-    moe families' sliding-window ring is slice 11's)."""
+    shared ring caches and untied embeddings (the dense and moe families'
+    sliding-window ring is slice 11's; every architecture of the
+    reference serves since slice 12)."""
     cfg = tconfigs.get_reduced("zamba2-2.7b", window=8)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TT.init_decode_state(cfg, 2, 16, device="cpu")
+    cfg = tconfigs.get_reduced("gemma-2b", tie_embeddings=False)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        serve("llama-3.2-vision-11b", device="cpu", gen=2)
+        TT.init_decode_state(cfg, 2, 16, device="cpu")
 
 
 def test_qkv_bias_inits_zero_biases_on_q_k_v():
