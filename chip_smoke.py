@@ -278,6 +278,38 @@ NVIDIA card.
    ``[serve-moe]``'s teacher-forced check runs 4; ``[cheb]`` runs Fig. 9
    for 6 epochs; ``[serve-hybrid]`` decodes 16 new tokens and profiles 2
    steps;
+13c. slice 13 — ``[kernel] qmm features``: B5 at gemma-2b's four (K, N),
+   int8, at every M ``[serve-features]`` launches it at that no earlier
+   row checked: a prefill chunk's M 32 (``chunk_pages`` 2 × page 16) and
+   the shared-prefix trace's prompt buckets; ``[kernel] paged_decode_attn
+   features``: B10 at a chunk's call (32 queries of one sequence at
+   gemma-2b's (8, 1, 256), int8, ``seq_len = min(position + 1, prompt
+   length)``). ``[serve-features]``: full-width gemma-2b at 8/8 (one
+   weight tree shared by every engine), every request sampled at
+   temperature 0.8, top-k 40, in five runs, each with the ``qmm``,
+   ``paged_decode_attn`` and threefry counters set to 0 just before and
+   > 0 just after, every ``qmm`` launch at a checked shape on plan's core
+   and 7 × 18 ``qmm`` and 18 B10 launches a decode step and a prefill
+   chunk: (1) the slice-1 trace monolithic, two of its requests re-served
+   alone with the same tokens, and a profiled decode; (2) a shared-prefix
+   trace (8 requests, 2 families of a 64-token prefix + 8–40 private
+   tokens, 8–16 new) with ``prefix_cache=True, chunk_pages=2`` — ≥ 6
+   prefix hits, the tokens of the same trace chunked without a cache,
+   leak-free after ``release_prefix_cache`` — and a profiled chunked
+   decode; (3) that trace monolithic under ``reserve='none'`` with a pool
+   that holds the first four prompts and nothing more: ≥ 1 preemption,
+   the tokens of ``reserve='full'``; (4) on a ``VirtualClock``:
+   ``nan_logits`` fails one request alone with reason 'nan', and a
+   ``kv_flip`` in a shared trie page between two waves gets it evicted
+   (the second wave's tokens are the cache-free run's); (5)
+   ``ReplicaSet(2)`` on the one card, ``dispatch='prefix'``, replica 0
+   raising at set steps 4 and 5: every request finishes once with the
+   fault-free tokens, replica 0 restarts, every pool drains leak-free.
+   ``[check serve-features]``: the reduced model at f32, 8/8, card against
+   the CPU's plain path: chunked, prefix and preempting runs (greedy)
+   every token equal with the same hits and preemptions; a sampled run
+   whose tokens may part only where the CPU's two largest perturbed
+   scores lie within 1e-3;
 14. every plane the paths draw on the card takes the threefry kernel: a
    phase fails if ``prng`` made an int64 hash on the card in it (its
    counter, set to 0 just before each phase but the kernels'), and the main
@@ -736,6 +768,39 @@ AUDIO_CHECKS = (("bfloat16", 0, 0), ("float32", 8, 8), ("float32", 4, 4))
 DEPTH_MAX_NEW = 16
 DENSE_PROFILE_STEPS = 2
 HYBRID_PROFILE_STEPS = 2
+# slice 13: the engine's remaining features ([serve-features]) on
+# full-width gemma-2b at weight/KV bits 8/8, page 16, 4 slots, random
+# weights from seed 0, every engine at serve_engine's context (128 + 32 +
+# 16 tokens); every run samples at temperature 0.8, top-k 40
+FEAT_BITS = 8
+FEAT_SAMPLE = dict(temperature=0.8, top_k=40)
+FEAT_CHUNK_PAGES = 2
+FEAT_CHUNK_M = FEAT_CHUNK_PAGES * SERVE["page_size"]   # a chunk's rows: B5's M, B10's B
+FEAT_CONTEXT = SERVE["max_prompt"] + SERVE["max_new"] + SERVE["page_size"]
+FEAT_LONG_PROMPT = 4096       # B10's check-only chunk row: a long prompt's last chunk
+# the shared-prefix trace: 8 requests in 2 families, each a 64-token prefix
+# (4 pages) + a private suffix of 8–40 tokens, 8–16 new tokens; the two
+# family leaders (rids 0, 1) arrive first, the rest once they are prefilled
+FEAT_PREFIX = dict(n_requests=8, families=2, prefix_len=64, suffix=(8, 40),
+                   max_new=(8, 16), seed=13)
+FEAT_MIN_HITS = 6
+FEAT_SOLO = (2, 5)            # run 1's requests re-served alone
+FEAT_NAN = dict(at_step=3, rid=1)          # run 4: one request's logits poisoned
+FEAT_FLIP = dict(n_flips=3, seed=11)       # run 4: flips in a shared trie page
+FEAT_RAISE_STEPS = (4, 5)                  # run 5: replica 0 raises at these set steps
+FEAT_HEALTH = dict(step_deadline_s=1.0, dead_after=2, restart_backoff_s=0.1,
+                   backoff_cap_s=0.5, max_restarts=2)
+FEAT_PROFILE_STEPS = 3
+# [check serve-features]: the reduced model at f32, 8/8, card against the
+# CPU's plain path. A sampled token may part only where the CPU's two
+# largest perturbed scores (logits / T + Gumbel noise) lie within
+# FEAT_SAMPLE_TIE of each other (f32 sums in another order move a logit by
+# ~1e-6 of its size)
+FEAT_SAMPLE_TIE = 1e-3
+# its shared-prefix trace: 8 requests, 2 families of a 16-token prefix (2
+# pages of 8) + 2–10 tokens, 8–16 new
+FEAT_CHECK = dict(n_requests=8, families=2, prefix_len=16, suffix=(2, 10), max_new=(8, 16),
+                  seed=13)
 
 
 def _fail(msg: str, code: int):
@@ -985,10 +1050,14 @@ def _attn_pool(dev, gen, bits, n_pages, page, hkv, d):
     return kp, vp, ksc, vsc
 
 
-def _attn_row(flush, args, bits, path):
+def _attn_row(flush, args, bits, path, shared=False):
     """Check one ``paged_decode_attn`` call against its plain version
     (ATTN_TOL) and every row of it against the same row computed alone
-    (bit-equal), then time it beside the plain version and SDPA."""
+    (bit-equal), then time it beside the plain version and SDPA.
+    ``shared``: every query is a position of one sequence on one block
+    table (a prefill chunk), so the bound reads that sequence's rows once
+    (max(lens) of them) and the yardstick is one SDPA of the B queries over
+    its gathered context, query i masked to its first lens[i] rows."""
     import torch
     from repro_torch.kernels import paged_attn as PA
     from repro_torch.kernels.ref import dequant_pages_ref, gather_pages_ref
@@ -1018,24 +1087,31 @@ def _attn_row(flush, args, bits, path):
                                  "the same row computed alone")
     # library yardstick: SDPA over the gathered, dequantized rows, each kv
     # head repeated for its H / Hkv query heads
-    kk = dequant_pages_ref(gather_pages_ref(kp, bt), gather_pages_ref(ksc, bt) if bits else None)
-    vv = dequant_pages_ref(gather_pages_ref(vp, bt), gather_pages_ref(vsc, bt) if bits else None)
-    t_all = kk.shape[1]
+    bt_lib = bt[:1] if shared else bt
+    kk = dequant_pages_ref(gather_pages_ref(kp, bt_lib),
+                           gather_pages_ref(ksc, bt_lib) if bits else None)
+    vv = dequant_pages_ref(gather_pages_ref(vp, bt_lib),
+                           gather_pages_ref(vsc, bt_lib) if bits else None)
+    t_all, nb = kk.shape[1], kk.shape[0]
 
     def heads(x):
         x = x.to(torch.bfloat16).permute(0, 2, 1, 3)[:, :, None]
-        return x.expand(b, hkv, h // hkv, t_all, d).reshape(b, h, t_all, d).contiguous()
+        return x.expand(nb, hkv, h // hkv, t_all, d).reshape(nb, h, t_all, d).contiguous()
 
     kk, vv = heads(kk), heads(vv)
-    mask = (torch.arange(t_all, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
+    mask = torch.arange(t_all, device=q.device)[None, :] < lens[:, None]
+    if shared:      # (1, H, B, D) queries, (1, 1, B, T) mask
+        mask, q4 = mask[None, None], q.permute(1, 0, 2)[None]
+    else:           # (B, H, 1, D) queries, (B, 1, 1, T) mask
+        mask, q4 = mask[:, None, None, :], q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = _timed(lambda: PA.paged_decode_attn(*args, **kw), flush)
     plain_ms = _timed(lambda: PA.paged_decode_attn_plain(*args, **kw), flush)
     lib_ms = _timed(lambda: sdpa(q4, kk, vv, attn_mask=mask), flush)
     rows_kv = int(lens.sum())
+    rows_read = int(lens.max()) if shared else rows_kv
     row_bytes = {0: d * 2, 8: d + 4, 4: d // 2 + 4}[bits]
-    nbytes = q.numel() * q.element_size() + 2 * rows_kv * hkv * row_bytes + bt.numel() * 4 \
+    nbytes = q.numel() * q.element_size() + 2 * rows_read * hkv * row_bytes + bt.numel() * 4 \
         + b * 4 + b * h * d * 4
     bound_ms, bound_by = _bound(nbytes, 4 * rows_kv * h * d)
     print(f"[kernel] {label} lens={lens_l}: max_err={err:.3e} (tol {ATTN_TOL:g}), rows "
@@ -5545,6 +5621,507 @@ def agree_audio(dev):
     return out
 
 
+def _feature_trace(vocab: int, sample: bool = True, spec: dict = FEAT_PREFIX):
+    """The shared-prefix trace of ``spec`` (default [serve-features]'
+    FEAT_PREFIX) as the port's Requests over ``vocab``, sampled at
+    FEAT_SAMPLE unless ``sample`` is False: request i extends family i mod
+    ``families``'s prefix by a private suffix."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(spec["seed"])
+    fams = [rng.integers(0, vocab, spec["prefix_len"]) for _ in range(spec["families"])]
+    out = []
+    for rid in range(spec["n_requests"]):
+        lo, hi = spec["suffix"]
+        tail = rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+        budget = int(rng.integers(spec["max_new"][0], spec["max_new"][1] + 1))
+        out.append(Request(rid=rid, prompt=np.concatenate([fams[rid % spec["families"]], tail]),
+                           max_new_tokens=budget, **(FEAT_SAMPLE if sample else {})))
+    return out
+
+
+def _feature_ms() -> set:
+    """The M at which [serve-features] launches ``qmm``: decode (4 slots),
+    a prefill chunk (FEAT_CHUNK_M), each prompt bucket of the slice-1 trace
+    and of the shared-prefix trace, and the profiles' 64-token prompts."""
+    from repro_torch import configs
+
+    page = SERVE["page_size"]
+    trace = _feature_trace(configs.get_config("gemma-2b").vocab_size)
+    return ({SERVE["max_slots"], FEAT_CHUNK_M, 64} | set(_prompt_buckets())
+            | {-(-len(r.prompt) // page) * page for r in trace})
+
+
+def check_qmm_features(dev, flush, checked):
+    """``qmm`` at gemma-2b's four (K, N), int8, at every M of
+    :func:`_feature_ms` that no earlier row checked (``checked``: their
+    (packed, M, K, N) keys): the prefill chunk's M 32 and the shared-prefix
+    trace's prompt buckets."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for m in sorted(_feature_ms()):
+        for k, n in QBP_KN:
+            if (False, m, k, n) in checked:
+                continue
+            role = " (prefill chunk)" if m == FEAT_CHUNK_M else f" (prefill, bucket {m})"
+            rows.append(_qmm_row(dev, gen, flush, FEAT_BITS, m, k, n, role))
+    return rows
+
+
+def check_paged_attn_features(dev, flush):
+    """B10 at a prefill chunk's call ([serve-features]): FEAT_CHUNK_M
+    queries at gemma-2b's (8, 1, 256) layout over int8 pages, every query
+    on the same sequence's block table at ``seq_len = min(position + 1,
+    prompt length)`` — a chunk at offset 32 of a 50-token prompt (the
+    path's row) and, check-only, the last chunk of a FEAT_LONG_PROMPT-token
+    prompt: each query re-reads the context, so a chunk at offset L asks
+    for ~C·L rows where one gathered attention reads L."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, (h, hkv, d), page = FEAT_CHUNK_M, (8, 1, 256), SERVE["page_size"]
+    rows = []
+    for prompt, path in ((50, True), (FEAT_LONG_PROMPT, False)):
+        maxp = -(-max(prompt, FEAT_CONTEXT) // page)
+        offset = (prompt - 1) // b * b
+        q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
+        row = (torch.randperm(maxp, generator=gen, device=dev) + 1).to(torch.int32)
+        bt = row[None].expand(b, maxp).contiguous()
+        lens = torch.tensor([min(offset + i + 1, prompt) for i in range(b)], dtype=torch.int32,
+                            device=dev)
+        pool = _attn_pool(dev, gen, FEAT_BITS, maxp + 1, page, hkv, d)
+        out = _attn_row(flush, (q, *pool, bt, lens), FEAT_BITS, path, shared=True)
+        if path:
+            out["name"] += " (prefill chunk)"
+        else:
+            out["name"] = out["name"].replace(" (check only)", "").split(" lens")[0] \
+                + f" lens {offset + 1}–{prompt} (a long prompt's last chunk; check only)"
+        out["path"] = path
+        rows.append(out)
+    return rows
+
+
+def _in_waves(engine, reqs, families: int) -> dict:
+    """Serve ``reqs`` on ``engine``: the first ``families`` (one request of
+    each prefix family) arrive first, the rest once those are prefilled
+    (their pages then sit in the trie). Returns rid → Finished."""
+    out = {}
+    for r in reqs[:families]:
+        engine.submit(r)
+    while engine._queue or engine.n_prefilling:
+        out.update({f.rid: f for f in engine.step()})
+    for r in reqs[families:]:
+        engine.submit(r)
+    while engine.busy:
+        out.update({f.rid: f for f in engine.step()})
+    return out
+
+
+def _tokens(results) -> dict:
+    return {rid: f.tokens.tolist() for rid, f in sorted(results.items())}
+
+
+def _profile_live(engine, steps: int, what: str):
+    """``profile_window`` over ``steps`` decode steps of 4 live sampled
+    requests of 64-token prompts (rids 100–103), once all four decode."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(7)
+    for i in range(4):
+        engine.submit(Request(rid=100 + i, prompt=rng.integers(0, engine.cfg.vocab_size, 64),
+                              max_new_tokens=steps + 8, seed=7, **FEAT_SAMPLE))
+    while engine._queue or engine.n_prefilling or engine.n_active < 4:
+        engine.step()
+    out = profile_window(engine.step, steps, f"{what} x 4 live slots")
+    while engine.busy:
+        engine.step()
+    return out
+
+
+def serve_features(dev, checked):
+    """Slice 13's path: full-width gemma-2b at 8/8 (one weight tree, built
+    once, shared by every engine) through ``ServeEngine`` and
+    ``ReplicaSet``, every request sampled at FEAT_SAMPLE, in five runs. The
+    ``qmm``, ``paged_decode_attn`` and threefry counters are set to 0 just
+    before each run and must read > 0 just after; every ``qmm`` launch must
+    be at a checked (packed, M, K, N) on plan's core; ``qmm`` must launch 7
+    × 18 times and B10 18 times a decode step, a prefill chunk and (``qmm``)
+    a monolithic prefill.
+
+    1. sampled: the slice-1 trace, monolithic; two of its requests
+       re-served alone give the same tokens; a decode profile;
+    2. shared prefix: FEAT_PREFIX's trace with ``prefix_cache=True,
+       chunk_pages=2`` (leaders first): ≥ FEAT_MIN_HITS prefix hits, the
+       same tokens as the trace chunked without a cache, leak-free after
+       ``release_prefix_cache``; a decode profile;
+    3. preempting: that trace monolithic under ``reserve='none'`` with a
+       pool that holds the first four prompts' pages and nothing more:
+       ≥ 1 preemption, the tokens of ``reserve='full'``;
+    4. faults on a ``VirtualClock``: ``nan_logits`` on one request of the
+       slice-1 trace fails it alone with reason 'nan' (the others keep run
+       1's tokens); a ``kv_flip`` in a shared trie page between two waves
+       of the shared-prefix trace gets the page evicted, and the second
+       wave's tokens equal run 2's cache-free run's;
+    5. ``ReplicaSet(2)`` on the card (``dispatch='prefix'``), replica 0
+       raising at set steps FEAT_RAISE_STEPS: every request finishes once
+       with run 2's tokens, replica 0 restarts, every pool drains
+       leak-free."""
+    import torch
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import qmm as Q
+    from repro_torch.kernels import threefry as TF
+    from repro_torch.launch.serve import HealthConfig, ReplicaSet, _build, make_trace
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import FaultInjector, FaultSpec, ServeEngine, VirtualClock
+    from repro_torch.serve import pages as pg
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plan = PrecisionPlan(model_bits=FEAT_BITS, kv_bits=FEAT_BITS, model_storage="int")
+    t0 = time.perf_counter()
+    cfg, params = _build("gemma-2b", reduced=False, plan=plan, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if _width(cfg) != DENSE_WIDTH["gemma-2b"]:
+        raise AssertionError(f"not full-width gemma-2b: {cfg}")
+    L, V = cfg.n_layers, cfg.vocab_size
+    ekw = dict(plan=plan, max_slots=SERVE["max_slots"], page_size=SERVE["page_size"],
+               max_seq_len=FEAT_CONTEXT, device=dev)
+
+    def engine(**kw):
+        return ServeEngine(params, cfg, **ekw, **kw)
+
+    trace1 = make_trace(SERVE["n_requests"], V, max_new=SERVE["max_new"],
+                        max_prompt=SERVE["max_prompt"], seed=0, **FEAT_SAMPLE)
+    trace2 = _feature_trace(V)
+    fams = FEAT_PREFIX["families"]
+    acc = {"qmm": collections.Counter(), "tf": collections.Counter(),
+           "attn_decode": 0, "attn_chunk": 0}
+    report = {"build_s": build_s}
+
+    def counted(tag, fn):
+        Q.reset_counters()
+        PA.launches = 0
+        TF.reset_counts()
+        t0 = time.perf_counter()
+        engines, out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"qmm": Q.launches, "paged_decode_attn": PA.launches,
+                    "threefry": TF.launches}
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"[serve-features] {tag}: kernel {name} was not launched")
+        cores = _core_gate(f"[serve-features] {tag}", Q, checked)
+        st = {k: (max if k.startswith("max_") else sum)(e.stats[k] for e in engines)
+              for k in engines[0].stats}
+        prefills = sum(e.stats["admitted"] for e in engines if e.chunk_pages is None)
+        want = {"qmm": 7 * L * (st["decode_steps"] + st["prefill_chunks"] + prefills),
+                "paged_decode_attn": L * (st["decode_steps"] + st["prefill_chunks"])}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"[serve-features] {tag}: launches {launches}, expected {want}")
+        acc["qmm"].update(Q.shape_launches)
+        acc["tf"].update(TF.shape_launches)
+        acc["attn_decode"] += L * st["decode_steps"]
+        acc["attn_chunk"] += L * st["prefill_chunks"]
+        times = [t for e in engines for t in e.decode_times]
+        summary = {"wall_s": wall, "launches": launches, "qmm_launches_by_core": cores,
+                   "threefry_shape_launches": sorted([*k, n] for k, n in
+                                                     TF.shape_launches.items()),
+                   "mean_decode_step_ms": 1e3 * statistics.mean(times) if times else None,
+                   **{k: st[k] for k in ("decode_steps", "decode_tokens", "prefill_tokens",
+                                         "prefill_chunks", "max_prefill_tokens_per_step",
+                                         "prefix_hits", "prefix_misses",
+                                         "prefix_hit_tokens", "preemptions", "quarantined",
+                                         "kv_flips", "finished")}}
+        summary.update(out.pop("summary", {}))
+        print(f"[serve-features] {tag}: {st['finished']} requests finished in "
+              f"{st['decode_steps']} decode steps (+{st['prefill_tokens']} prefill tokens, "
+              f"{st['prefill_chunks']} chunks, at most {st['max_prefill_tokens_per_step']} "
+              f"a step); prefix hits {st['prefix_hits']} ({st['prefix_hit_tokens']} tokens), "
+              f"preemptions {st['preemptions']}, quarantined {st['quarantined']}; "
+              f"decode {summary['mean_decode_step_ms'] or float('nan'):.2f} ms/step; "
+              f"launches {launches} {cores}; wall {wall:.1f} s", flush=True)
+        report[tag] = summary
+        return out
+
+    def check_finished(results, n, what):
+        if sorted(results) != list(range(n)):
+            raise AssertionError(f"[serve-features] {what}: finished {sorted(results)}")
+        for f in results.values():
+            gen = f.tokens[f.prompt_len:]
+            if len(gen) != f.n_generated or (f.reason != "nan" and f.n_generated < 1) \
+                    or (len(gen) and (gen.min() < 0 or gen.max() >= V)):
+                raise AssertionError(f"[serve-features] {what}: request {f.rid} {f.reason}, "
+                                     f"{f.n_generated} tokens")
+
+    # 1. sampled, monolithic; two requests alone; a decode profile
+    def run1():
+        eng = engine()
+        res = eng.run(trace1)
+        check_finished(res, len(trace1), "sampled")
+        eng.allocator.check_leaks(0)
+        engines = [eng]
+        for rid in FEAT_SOLO:
+            solo = engine()
+            engines.append(solo)
+            got = solo.run([trace1[rid]])[rid].tokens
+            if not np.array_equal(got, res[rid].tokens):
+                raise AssertionError(f"[serve-features] sampled: request {rid} alone gives "
+                                     "other tokens than in the batch")
+        run_ms = 1e3 * statistics.mean(eng.decode_times)
+        prof = _profile_live(eng, FEAT_PROFILE_STEPS, "sampled decode steps")
+        return engines, {"tokens": _tokens(res), "summary": {
+            "profile": prof, "trace_decode_step_ms": run_ms}}
+
+    sampled = counted("sampled", run1)
+
+    # 2. the shared-prefix trace: prefix cache + chunks against chunks alone
+    def run2():
+        warm, cold = engine(prefix_cache=True, chunk_pages=FEAT_CHUNK_PAGES), \
+            engine(chunk_pages=FEAT_CHUNK_PAGES)
+        got = _in_waves(warm, trace2, fams)
+        want = _in_waves(cold, trace2, fams)
+        check_finished(got, len(trace2), "shared prefix")
+        if warm.stats["prefix_hits"] < FEAT_MIN_HITS:
+            raise AssertionError(f"[serve-features] shared prefix: "
+                                 f"{warm.stats['prefix_hits']} prefix hits < {FEAT_MIN_HITS}")
+        if _tokens(got) != _tokens(want):
+            raise AssertionError("[serve-features] shared prefix: tokens differ from the "
+                                 "same trace chunked without a cache")
+        if warm.stats["max_prefill_tokens_per_step"] > FEAT_CHUNK_M:
+            raise AssertionError("[serve-features] a step prefilled more than a chunk")
+        used = warm.kv_pool_nbytes(used_only=True)
+        cached = warm.prefix.n_pages
+        released = warm.release_prefix_cache()
+        warm.allocator.check_leaks(0)
+        cold.allocator.check_leaks(0)
+        run_ms = {"prefix": 1e3 * statistics.mean(warm.decode_times),
+                  "chunked": 1e3 * statistics.mean(cold.decode_times)}
+        prof = _profile_live(cold, FEAT_PROFILE_STEPS, "chunked decode steps")
+        cold.allocator.check_leaks(0)
+        return [warm, cold], {"tokens": _tokens(want), "summary": {
+            "profile": prof, "trace_decode_step_ms": run_ms,
+            "pages_cached_at_drain": cached, "pages_released": released,
+            "kv_bytes_used_at_drain": used}}
+
+    prefix = counted("shared prefix", run2)
+
+    # 3. preemption under reserve='none', monolithic, against reserve='full'
+    def run3():
+        page = SERVE["page_size"]
+        n_pages = 1 + sum(pg.pages_needed(len(r.prompt) + 1, page)
+                          for r in trace2[:SERVE["max_slots"]])
+        tight = engine(reserve="none", n_pages=n_pages)
+        full = engine()
+        got, want = tight.run(trace2), full.run(trace2)
+        check_finished(got, len(trace2), "preempting")
+        if tight.stats["preemptions"] < 1:
+            raise AssertionError("[serve-features] preempting: no preemption")
+        if _tokens(got) != _tokens(want):
+            raise AssertionError("[serve-features] preempting: tokens differ from "
+                                 "reserve='full'")
+        tight.allocator.check_leaks(0)
+        full.allocator.check_leaks(0)
+        return [tight, full], {"summary": {"n_pages": n_pages}}
+
+    counted("preempting", run3)
+
+    # 4. faults on a virtual clock
+    def run4():
+        clock = VirtualClock()
+        inj = FaultInjector([FaultSpec("nan_logits", **FEAT_NAN)], clock=clock)
+        eng = engine(fault_injector=inj, clock=clock)
+        res = eng.run(trace1)
+        check_finished(res, len(trace1), "nan_logits")
+        bad = {rid for rid, f in res.items() if f.reason == "nan"}
+        if bad != {FEAT_NAN["rid"]} or eng.stats["quarantined"] != 1:
+            raise AssertionError(f"[serve-features] nan_logits failed {sorted(bad)}")
+        rest = {r: t for r, t in _tokens(res).items() if r not in bad}
+        if rest != {r: t for r, t in sampled["tokens"].items() if r not in bad}:
+            raise AssertionError("[serve-features] nan_logits changed another request")
+        eng.allocator.check_leaks(0)
+        flips = FaultInjector([], clock=clock)
+        warm = engine(prefix_cache=True, chunk_pages=FEAT_CHUNK_PAGES, fault_injector=flips,
+                      clock=clock)
+        _in_waves(warm, trace2, fams)
+        victim = warm.prefix.match(trace2[0].prompt)[0]
+        flips.arm(FaultSpec("kv_flip", at_step=warm._step_no + 1, page=victim, **FEAT_FLIP))
+        wave2 = _in_waves(warm, trace2, fams)
+        if warm.stats["kv_flips"] != 1 or warm.prefix.corrupt_evictions < 1:
+            raise AssertionError(f"[serve-features] kv_flip: {warm.stats['kv_flips']} flips, "
+                                 f"{warm.prefix.corrupt_evictions} corrupt evictions")
+        if _tokens(wave2) != prefix["tokens"]:
+            raise AssertionError("[serve-features] kv_flip: the second wave's tokens differ "
+                                 "from the cache-free run's")
+        warm.release_prefix_cache()
+        warm.allocator.check_leaks(0)
+        fired = [(r["kind"], r["step"], r["replica"]) for r in (*inj.fired, *flips.fired)]
+        return [eng, warm], {"summary": {
+            "fired": fired, "corrupt_evictions": warm.prefix.corrupt_evictions,
+            "quarantined_rids": sorted(bad)}}
+
+    counted("faults", run4)
+
+    # 5. two replicas on the card, replica 0 raising twice mid-trace
+    def run5():
+        clock = VirtualClock()
+        inj = FaultInjector([FaultSpec("replica_raise", at_step=s, replica=0)
+                             for s in FEAT_RAISE_STEPS], clock=clock)
+        built = []
+
+        def factory(i):
+            built.append(engine(prefix_cache=True, chunk_pages=FEAT_CHUNK_PAGES, clock=clock,
+                                fault_injector=inj, replica_id=i))
+            return built[-1]
+
+        rs = ReplicaSet(factory, 2, devices=[dev, dev], dispatch="prefix", clock=clock,
+                        fault_injector=inj, health=HealthConfig(**FEAT_HEALTH))
+        for r in trace2:
+            rs.submit(r)
+        out = {}
+        for _ in range(10_000):
+            if not rs._queue and not any(e.busy for e in rs.engines) \
+                    and all(h.state == "healthy" for h in rs.health):
+                break
+            for rid, f in rs.step().items():
+                if rid in out:
+                    raise AssertionError(f"[serve-features] replicas: request {rid} "
+                                         "finished twice")
+                out[rid] = f
+            clock.advance(0.01)
+        check_finished(out, len(trace2), "replicas")
+        states = [t[2] for t in rs.health[0].transitions]
+        if (rs.stats["deaths"], rs.stats["restarts"]) != (1, 1) or rs.stats["migrated"] < 1 \
+                or states != ["suspect", "dead", "recovering", "healthy"]:
+            raise AssertionError(f"[serve-features] replicas: {rs.stats}, replica 0 {states}")
+        if _tokens(out) != prefix["tokens"]:
+            raise AssertionError("[serve-features] replicas: tokens differ from the "
+                                 "fault-free run's")
+        for e in rs.engines:
+            e.release_prefix_cache()
+            e.allocator.check_leaks(0)
+        return built, {"summary": {"set_stats": dict(rs.stats), "dispatched": rs.dispatched,
+                                   "replica0_transitions": states,
+                                   "engines_built": len(built)}}
+
+    counted("replicas", run5)
+    torch.cuda.synchronize()
+    report["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    report["launches"] = {"qmm_by_shape": sorted([*k, n] for k, n in acc["qmm"].items()),
+                          "paged_decode_attn_decode": acc["attn_decode"],
+                          "paged_decode_attn_chunk": acc["attn_chunk"]}
+    # the phase's threefry launches: every run's, for the kernels line
+    TF.reset_counts()
+    TF.shape_launches.update(acc["tf"])
+    TF.launches = sum(acc["tf"].values())
+    print(f"[serve-features] gemma-2b full width 8/8: weights built in {build_s:.1f} s, "
+          f"peak {report['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return report, acc
+
+
+def agree_features(dev):
+    """The reduced gemma-2b at f32, 8/8, through the engine on the card
+    (kernels) and on the CPU's plain path from the same weights: a
+    shared-prefix trace (FEAT_CHECK) chunked without and with the prefix
+    cache and monolithic under ``reserve='none'`` with preemption (greedy:
+    every token equal, and the same hits and preemptions), and the slice-1
+    trace's shape sampled at FEAT_SAMPLE (a token may part only where the
+    CPU's two largest perturbed scores lie within FEAT_SAMPLE_TIE)."""
+    import torch
+    from repro_torch import configs, prng
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.precision.qat import quantize_param_tree
+    from repro_torch.quant import PrecisionPlan
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import pages as pg
+    from repro_torch.serve import sampling as S
+
+    plan = PrecisionPlan(model_bits=8, kv_bits=8, model_storage="int")
+    cfg = configs.get_reduced("gemma-2b", dtype=torch.float32, precision=plan)
+    params = quantize_param_tree(T.init_params(cfg, seed=0, device="cpu"), bits=8)
+    greedy = _feature_trace(cfg.vocab_size, sample=False, spec=FEAT_CHECK)
+    n_pages = 1 + sum(pg.pages_needed(len(r.prompt) + 1, 8) for r in greedy[:4])
+    runs = {"chunked": (greedy, dict(chunk_pages=2)),
+            "prefix": (greedy, dict(chunk_pages=2, prefix_cache=True)),
+            "preempting": (greedy, dict(reserve="none", n_pages=n_pages)),
+            "sampled": (make_trace(8, cfg.vocab_size, max_new=16, max_prompt=32, seed=0,
+                                   **FEAT_SAMPLE), {})}
+    gaps = {}
+    plain = S.sample_tokens
+
+    def recording(logits, temperature, top_k, keys):
+        """The CPU run's gap between its two largest perturbed scores, by
+        key (the key names the request and position)."""
+        out = plain(logits, temperature, top_k, keys)
+        if logits.device.type == "cpu":
+            b, v = logits.shape
+            t = torch.as_tensor(np.asarray(temperature), dtype=torch.float32).reshape(b)
+            k = torch.as_tensor(np.asarray(top_k), dtype=torch.int64).reshape(b)
+            kth = torch.sort(logits, dim=-1, descending=True).values.gather(
+                1, (k.clamp(1, v) - 1)[:, None])
+            masked = torch.where((k[:, None] <= 0) | (logits >= kth), logits, float("-inf"))
+            u = prng.uniform(torch.as_tensor(keys).reshape(b, 2), (v,)).clamp_min(S.TINY)
+            score = masked / torch.where(t > 0, t, 1.0)[:, None] - torch.log(-torch.log(u))
+            top2 = torch.topk(score, 2, dim=-1).values
+            for i in range(b):
+                gaps[tuple(torch.as_tensor(keys).reshape(b, 2)[i].tolist())] = \
+                    float(top2[i, 0] - top2[i, 1])
+        return out
+
+    out = {}
+    S.sample_tokens = recording
+    try:
+        for name, (reqs, kw) in runs.items():
+            res, stats = {}, {}
+            for where in (dev, "cpu"):
+                eng = ServeEngine(params, cfg, max_slots=4, page_size=8, max_seq_len=56,
+                                  backend="cuda", device=where, **kw)
+                res[str(where)] = (_in_waves(eng, reqs, FEAT_CHECK["families"])
+                                   if kw.get("prefix_cache") else eng.run(reqs))
+                stats[str(where)] = {k: eng.stats[k] for k in ("prefix_hits", "preemptions")}
+                eng.release_prefix_cache()
+                eng.allocator.check_leaks(0)
+            on_card, on_cpu = res[str(dev)], res["cpu"]
+            parted, worst = [], 0.0
+            for rid, f in on_cpu.items():
+                g = on_card[rid]
+                if np.array_equal(g.tokens, f.tokens):
+                    continue
+                if name != "sampled":
+                    raise AssertionError(f"[check serve-features] {name}: request {rid} "
+                                         "parts between card and CPU")
+                j = next(i for i in range(min(len(g.tokens), len(f.tokens)) - f.prompt_len)
+                         if g.tokens[f.prompt_len + i] != f.tokens[f.prompt_len + i])
+                req = next(r for r in reqs if r.rid == rid)
+                base = prng.fold_in(prng.PRNGKey(req.seed), rid)
+                key = tuple(S.slot_key(base, f.prompt_len + j).tolist())
+                gap = gaps[key]
+                worst = max(worst, gap)
+                parted.append((rid, j, gap))
+                if not gap < FEAT_SAMPLE_TIE:
+                    raise AssertionError(f"[check serve-features] sampled request {rid} "
+                                         f"parts at token {j}, perturbed-score gap {gap:.3g} "
+                                         f">= {FEAT_SAMPLE_TIE}")
+            if stats[str(dev)] != stats["cpu"]:
+                raise AssertionError(f"[check serve-features] {name}: {stats}")
+            same = len(on_cpu) - len(parted)
+            print(f"[check] reduced gemma-2b f32 8/8 {name}: card kernels vs CPU plain path "
+                  f"through the engine — sequences equal {same}/{len(on_cpu)}"
+                  + (f", parted at near ties {parted}" if parted else "")
+                  + f"; {stats['cpu']}", flush=True)
+            out[name] = {"sequences_equal": same, "parted": parted, **stats["cpu"]}
+    finally:
+        S.sample_tokens = plain
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -5644,6 +6221,10 @@ def main():
     audio_qmm_rows = phase("kernel qmm audio", check_qmm_audio, dev, flush)
     audio_attn_rows = phase("kernel paged_decode_attn audio", check_paged_attn_audio, dev,
                             flush)
+    feat_qmm_rows = phase("kernel qmm features", check_qmm_features, dev, flush,
+                          {r["key"] for r in qmm_rows})
+    feat_attn_rows = phase("kernel paged_decode_attn features", check_paged_attn_features,
+                           dev, flush)
     gisette = make_dataset("gisette")
     qrows = phase("quantize-rows", quantize_rows_path, dev, gisette, flush)
     del flush
@@ -5712,6 +6293,11 @@ def main():
     vlm_small = phase("check vlm", agree_vlm, dev)
     audio = phase("serve-audio", serve_audio, dev, {r["key"] for r in audio_qmm_rows})
     audio_small = phase("check audio", agree_audio, dev)
+    # slice 13: every qmm launch of [serve-features] must be at a shape
+    # checked for gemma-2b or for it
+    features, feat_acc = phase("serve-features", serve_features, dev,
+                               checked | {r["key"] for r in feat_qmm_rows})
+    features_small = phase("check serve-features", agree_features, dev)
 
     # threefry launches on the main paths: the phases' reads (tf_path), and
     # the runs whose counters are reset again before a later run of the
@@ -5741,7 +6327,8 @@ def main():
     for r in qmm_rows:
         key = r.pop("key")
         r["launches"] = (all8["qmm"].get(key, 0) + runs[4 if key[0] else 8][1].get(key, 0)
-                         + (0 if key[0] else embed_qmm.get(key, 0)))
+                         + (0 if key[0] else embed_qmm.get(key, 0))
+                         + feat_acc["qmm"].get(key, 0))
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/qmm.cu",
                         "replaces": "src/repro/kernels/qmm.py:158", **r})
@@ -5760,6 +6347,8 @@ def main():
         r["launches"] = runs[bits][0]["paged_decode_attn"] if path and bits in runs else 0
         if path and bits == 8:
             r["launches"] += serve_opt["launches"]["paged_decode_attn"]
+        if path and bits == FEAT_BITS:      # [serve-features]' decode steps
+            r["launches"] += feat_acc["attn_decode"]
         kernels.append({"name": r.pop("name"), "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
                         "replaces": "src/repro/kernels/paged_attn.py:195", **r})
@@ -5928,6 +6517,20 @@ def main():
             kernels.append({"name": r.pop("name"), "route": "cuda",
                             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
                             "replaces": "src/repro/kernels/paged_attn.py:195", **r})
+    # slice 13: qmm at [serve-features]' new M (the prefill chunk, the
+    # shared-prefix buckets) and B10 at its chunk call, from the phase's
+    # counters summed over its five runs
+    for r in feat_qmm_rows:
+        r["launches"] = feat_acc["qmm"].get(r.pop("key"), 0)
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/qmm.cu",
+                        "replaces": "src/repro/kernels/qmm.py:158", **r})
+    for r in feat_attn_rows:
+        r.pop("kv_bits"), r.pop("layout")
+        r["launches"] = feat_acc["attn_chunk"] if r.pop("path") else 0
+        kernels.append({"name": r.pop("name"), "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+                        "replaces": "src/repro/kernels/paged_attn.py:195", **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "core")
     extra_keys = ("matmul_ms", "plain_code_share", "exact_code_share", "before_ms",
@@ -5958,7 +6561,8 @@ def main():
               "mixtral_agreement": mixtral_small,
               "serve_vlm": vlm, "cross_check": cross, "vlm_agreement": vlm_small,
               "serve_audio": {k: v[2] for k, v in audio.items()},
-              "audio_agreement": audio_small,
+              "audio_agreement": audio_small, "serve_features": features,
+              "features_agreement": features_small,
               "threefry_path_launches": [[*k, n] for k, n in sorted(tf_path.items())],
               "int32_ops_per_s": INT32_OPS, "phase_seconds": phase_s}
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

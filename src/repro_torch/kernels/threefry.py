@@ -190,8 +190,9 @@ def threefry_plane(key: torch.Tensor, shape, *, out: str = "int32", start: int =
     plane = torch.empty((*batch, *shape), dtype=OUTS[out], device=device)
     if plane.numel() == 0:
         return plane
-    if key.ndim == 1:
-        keys, k1, k2 = None, int(key[0]) & MASK, int(key[1]) & MASK
+    if nkeys == 1:      # one key, batched or not, goes by value: (out, 1, n) is one template
+        k1, k2 = (int(w) & MASK for w in key.reshape(2).tolist())
+        keys = None
     else:
         keys, k1, k2 = _keys_on(key, device), 0, 0
     lib = _lib()

@@ -8,8 +8,14 @@ nearest scheme. Page 0 is the null page: never allocated, the write target
 of inactive slots.
 
 Unlike the reference's functional updates, :func:`write_prompt`,
-:func:`append_rows` and :func:`write_rows` write into the pool **in place** — a decode step would
-otherwise copy every layer's page planes.
+:func:`append_rows`, :func:`write_rows` and :func:`scrub_pages` write into
+the pool **in place** — a decode step would otherwise copy every layer's
+page planes.
+
+The allocator refcounts pages so full (immutable) prompt pages can be
+shared read-only across block-table rows (the prefix cache): ``alloc``
+hands a page out at refcount 1, every further sharer takes :meth:`incref`,
+and ``free`` drops one reference.
 """
 from __future__ import annotations
 
@@ -140,18 +146,38 @@ def write_rows(k_pages, v_pages, k_scale, v_scale, k_new, v_new,
                 page_ids.reshape(-1), offsets.reshape(-1))
 
 
-def pool_nbytes(pool: PagedKVPool) -> int:
-    """Logical KV HBM bytes of the pool with the reference's QTensor.nbytes
-    accounting (unquantized pools count 16-bit codes and no scale plane)."""
+def scrub_pages(pool: PagedKVPool, page_ids) -> PagedKVPool:
+    """Zero the codes (and set the scales to 1) of ``page_ids`` in every
+    layer, in place — quarantine hygiene: a masked row's softmax weight is
+    0, but 0 × NaN = NaN through the value product, so a non-finite row
+    left in a recycled page would poison its next owner."""
+    ids = [int(i) for i in page_ids]
+    if not ids:
+        return pool
+    idx = torch.tensor(ids, dtype=torch.int64, device=pool.k_pages.device)
+    pool.k_pages[:, idx] = 0
+    pool.v_pages[:, idx] = 0
+    if pool.kv_bits:
+        pool.k_scale[:, idx] = 1.0
+        pool.v_scale[:, idx] = 1.0
+    return pool
+
+
+def pool_nbytes(pool: PagedKVPool, n_pages: int | None = None) -> int:
+    """Logical KV HBM bytes of ``n_pages`` pages (default the whole pool)
+    with the reference's QTensor.nbytes accounting (unquantized pools count
+    16-bit codes and no scale plane)."""
     bits = pool.kv_bits
+    P = pool.n_pages if n_pages is None else int(n_pages)
 
     def plane(codes):
-        n = math.prod(codes.shape)
+        shape = (codes.shape[0], P, *codes.shape[2:])
+        n = math.prod(shape)
         if not bits:
             return n * 2
         if bits == 4:
             n *= 2
-        return -(-n * bits // 8) + math.prod(codes.shape[:-1]) * 4
+        return -(-n * bits // 8) + math.prod(shape[:-1]) * 4
 
     return int(plane(pool.k_pages) + plane(pool.v_pages))
 
@@ -170,7 +196,12 @@ class PageAllocator:
         self._rc: dict[int, int] = {}
 
     @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
     def n_used(self) -> int:
+        """Unique pages currently referenced (shared pages count once)."""
         return (self.n_pages - 1) - len(self._free)
 
     def alloc(self, n: int) -> list[int] | None:
@@ -183,8 +214,27 @@ class PageAllocator:
             self._rc[i] = 1
         return out
 
+    def incref(self, ids) -> None:
+        """Take one more reference on allocated pages (prefix sharing); a
+        free page or the null page raises."""
+        for i in ids:
+            i = int(i)
+            if i == 0:
+                raise ValueError("page 0 is the null page — never allocated")
+            if i in self._free_set or i not in self._rc:
+                raise ValueError(f"incref of free page {i}")
+            self._rc[i] += 1
+
+    def refcount(self, i: int) -> int:
+        return self._rc.get(int(i), 0)
+
+    def used_pages(self) -> list[int]:
+        """Sorted ids of the allocated pages (shared pages once)."""
+        return sorted(self._rc)
+
     def free(self, ids) -> None:
-        """Drop one reference per page; double frees and page 0 raise."""
+        """Drop one reference per page; pages reaching refcount 0 return to
+        the free list. Double frees and page 0 raise."""
         for i in ids:
             i = int(i)
             if i == 0:
@@ -210,5 +260,5 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
 
 
 __all__ = ["PagedKVPool", "PageAllocator", "init_pool", "write_prompt",
-           "append_rows", "write_rows", "quant_rows", "pool_nbytes", "kv_scheme",
-           "pages_needed"]
+           "append_rows", "write_rows", "quant_rows", "pool_nbytes", "scrub_pages",
+           "kv_scheme", "pages_needed"]

@@ -5,8 +5,8 @@ The same ``make_trace`` (8 requests) runs through the reference
 reference's params bridged across, for weight_bits ∈ {0, 8, 4} × kv_bits ∈
 {0, 8, 4}. At f32 compute dtype the greedy tokens are identical; the engine
 invariants hold (every request finishes, no page leaks, the same KV bytes).
-Also: the CLI on the CPU, the unported engine features, and that the port
-imports neither ``jax`` nor ``repro``. The bf16 comparison is in
+Also: the CLI on the CPU, the engine features' configuration, and that the
+port imports neither ``jax`` nor ``repro``. The bf16 comparison is in
 ``test_torch_serve_bf16.py``.
 """
 import os
@@ -15,6 +15,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import jax
 import pytest
 import torch
 
@@ -64,15 +65,38 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(prefix_cache=True), NotImplementedError, "ROADMAP A3"),
-    (dict(chunk_pages=2), NotImplementedError, "ROADMAP A3"),
-    # speculation is ported: on weights without bitplanes it raises the
-    # reference's ValueError
+    (dict(prefix_cache=True), None, "chunk_pages"),
+    (dict(chunk_pages=2), None, "chunk_pages"),
+    # on weights without bitplanes speculation raises the reference's
+    # ValueError
     (dict(spec_decode=2, draft_bits=4), ValueError, "bitplane"),
-    (dict(reserve="none"), NotImplementedError, "ROADMAP A3")])
+    (dict(reserve="none"), None, "reserve")],
+    ids=["kw0-NotImplementedError-ROADMAP A3", "kw1-NotImplementedError-ROADMAP A3",
+         "kw2-ValueError-bitplane", "kw3-NotImplementedError-ROADMAP A3"])
 def test_unported_engine_features_raise(kw, err, match):
-    with pytest.raises(err, match=match):
-        ServeEngine({}, tconfigs.get_reduced("gemma-2b"), device="cpu", **kw)
+    """Every engine feature of the reference is ported: the prefix cache
+    (chunked over the whole context unless ``chunk_pages`` says otherwise),
+    chunked prefill and ``reserve='none'`` configure the engine as the
+    reference's does; speculation on dense weights raises as the
+    reference's does. The test's name and case ids are historical (they
+    date from when these features raised ``NotImplementedError``) and are
+    kept so that each case keeps its identity."""
+    from repro import configs as jconfigs
+    from repro.models import transformer as JT
+    from repro.serve import ServeEngine as JEngine
+    from repro_torch.models import transformer as T
+
+    cfg = tconfigs.get_reduced("gemma-2b")
+    if err is not None:
+        with pytest.raises(err, match=match):
+            ServeEngine(T.init_params(cfg, seed=0, device="cpu"), cfg, device="cpu", **kw)
+        return
+    eng = ServeEngine(T.init_params(cfg, seed=0, device="cpu"), cfg, device="cpu", **kw)
+    jcfg = jconfigs.get_reduced("gemma-2b")
+    ref = JEngine(JT.init_params(jax.random.PRNGKey(0), jcfg), jcfg, **kw)
+    for attr in ("chunk_pages", "reserve", "max_pages_per_seq"):
+        assert getattr(eng, attr) == getattr(ref, attr), attr
+    assert (eng.prefix is None) == (ref.prefix is None)
 
 
 def test_port_imports_no_jax():

@@ -242,11 +242,15 @@ def test_constructor_and_serve_engine_validation(models):
                 dict(ship_dir="unused")):
         with pytest.raises(ValueError, match="bitplane"):
             serve_engine("gemma-2b", **kw, **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        serve_engine("gemma-2b", **kw, weight_layout="bitplane", replicas=2)
+    # replicas and sampling are ported: two replicas serve the trace, and a
+    # sampled request through speculation gives vanilla decode's tokens
+    rs, res = serve_engine("gemma-2b", **kw, weight_layout="bitplane", replicas=2)
+    assert len(rs.engines) == 2 and sorted(res) == [0, 1]
+    req = Request(rid=0, prompt=[1, 2, 3], temperature=0.8, max_new_tokens=6)
     sampled = _port(models, 8, spec_decode=3, draft_bits=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        sampled.submit(Request(rid=0, prompt=[1, 2, 3], temperature=0.8))
+    np.testing.assert_array_equal(sampled.run([req])[0].tokens,
+                                  _port(models, 8).run([req])[0].tokens)
+    assert sampled.stats["spec_steps"] >= 1
 
 
 def test_serve_engine_from_ship_artifact(tmp_path):

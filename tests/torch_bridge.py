@@ -183,3 +183,34 @@ def serve_both(dtype: str, weight_bits: int, kv_bits: int, *, n_requests=8,
     jres = jeng.run(jtrace(n_requests, jcfg.vocab_size, **tkw))
     tres = teng.run(ttrace(n_requests, tcfg.vocab_size, **tkw))
     return jeng, teng, jres, tres
+
+
+_REF_JITS: dict = {}
+
+
+def ref_engine(params, cfg, **kw):
+    """A reference ``ServeEngine`` that reuses the jitted programs of an
+    earlier engine built here with the same configuration: the reference
+    makes its jitted closures per instance, over constants of the
+    configuration alone (cfg, plan, page size, slots, context, chunk width,
+    speculation, backend), so an engine of the same configuration runs the
+    same programs — only their compile is saved."""
+    from repro.serve import ServeEngine as JEngine
+
+    eng = JEngine(params, cfg, **kw)
+    key = (repr(eng.cfg), eng.page_size, eng.max_slots, eng.max_seq_len,
+           eng.chunk_pages, eng.spec_decode, eng.draft_bits, eng.backend)
+    prev = _REF_JITS.get(key)
+    if prev is None:
+        _REF_JITS[key] = prev = eng
+        if eng.chunk_pages is not None:
+            eng._chunk_jit()
+        if eng.spec_decode:
+            eng._draft_jit()
+    eng._decode_jits = prev._decode_jits
+    eng._prefill_jits = prev._prefill_jits
+    eng._verify_jits = prev._verify_jits
+    eng._chunk_jit_fn = prev._chunk_jit_fn
+    eng._draft_jit_fn = prev._draft_jit_fn
+    eng._sample1 = prev._sample1
+    return eng
